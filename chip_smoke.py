@@ -10,15 +10,26 @@ Phases, each printing one JSON line with its wall time:
      ``multigrid_step`` / ``multigrid_obs`` bit-exact over 300 steps with
      resets on random DR levels at N = 32 and N = 4096, ``gae`` within
      atol = rtol = 1e-5 at T = 256, N in {32, 4096}, with
-     ``handle_timelimits`` on and off; one small DR cycle on the card
-     against the same cycle on the CPU (plain twins) with its random draws
-     injected; then each kernel's time at the main path's shapes beside
+     ``handle_timelimits`` on and off; the teacher's construction step
+     (``multigrid_adversary.step``) bit-exact on every output of every
+     move of whole random constructions at N = 32 and 4096 for four env
+     variants (goal last with 25 blocks, goal first with 50, variable
+     blocks, noisy goal), and its BFS alone (``shortest_path``) on 4096
+     random levels; the teacher's fused projection (``teacher_proj``) and
+     its gradients within rtol = atol = 1e-4 at B = 32 and 27 * 32; one
+     small DR cycle and one small PAIRED cycle on the card against the
+     same cycles on the CPU (plain twins) with their random draws
+     injected; the teacher's construction and update at bench.py's
+     N = 8192 (B4's backward in row chunks) with its peak device memory;
+     then each kernel's time at the main path's shapes beside
      its plain twin's and its bound;
-  4. slice: two domain-randomization training cycles through the training
-     entry point at the settings of
+  4. slices, each with every kernel's launch count read around it: two
+     domain-randomization training cycles through the training entry
+     point at the settings of
      train_scripts/grid_configs/minigrid/25_blocks/mg_25b_dr.json without
-     PLR (N = 32, T = 256, LSTM-256, 5 PPO epochs, fp32), with every
-     kernel's launch count read around it;
+     PLR, two PAIRED cycles at those of mg_25b_paired.json (N = 32,
+     T = 256, LSTM-256 for both students and the teacher, 5 PPO epochs,
+     fp32), and one PAIRED cycle on bench.py's MultiGrid-Adversarial-v0;
   5. the ``kernels`` JSON line, then the result line.
 
 It exits non-zero, printing no result, if there is no CUDA card or any
@@ -43,6 +54,24 @@ SLICE_ARGS = [
     '--recurrent_hidden_size', '256', '--num_env_steps', str(2 * 32 * 256),
     '--seed', '1',
 ]
+# mg_25b_paired.json; two cycles.
+PAIRED_ARGS = [
+    '--env_name', ENV_NAME, '--ued_algo', 'paired', '--use_plr', 'false',
+    '--num_processes', '32', '--num_steps', '256', '--ppo_epoch', '5',
+    '--num_mini_batch', '1', '--handle_timelimits', 'true', '--lr', '1e-4',
+    '--gamma', '0.995', '--entropy_coef', '0.0', '--adv_entropy_coef', '0.0',
+    '--recurrent_arch', 'lstm', '--recurrent_agent', 'true',
+    '--recurrent_adversary_env', 'true', '--recurrent_hidden_size', '256',
+    '--num_env_steps', str(2 * 32 * 256), '--seed', '1',
+]
+# bench.py's env: 50 blocks, goal first; one cycle.
+BENCH_ENV_ARGS = PAIRED_ARGS + [
+    '--env_name', 'MultiGrid-Adversarial-v0', '--num_env_steps',
+    str(32 * 256)]
+ADVERSARY_ENVS = ('MultiGrid-GoalLastFewerBlocksAdversarial-v0',
+                  'MultiGrid-Adversarial-v0',
+                  'MultiGrid-GoalLastVariableBlocksAdversarialEnv-v0',
+                  'MultiGrid-NoisyAdversarial-v0')
 MAIN_N, MAIN_T = 32, 256
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -95,6 +124,16 @@ def graph_ms(fn, inner: int, samples: int = 25) -> float:
     return device_ms(graph.replay, 1, samples) / inner
 
 
+def max_abs_diff(a, b) -> float:
+    """Largest |a - b| of two tensors compared for equality (bools and
+    integers as int64, floats as float64)."""
+    import torch
+    if a.dtype == torch.bool:
+        a, b = a.long(), b.long()
+    wide = torch.float64 if a.is_floating_point() else torch.int64
+    return float((a.to(wide) - b.to(wide)).abs().max()) if a.numel() else 0.0
+
+
 def random_actions(n, generator, device):
     """Actions 0..6 with FORWARD (2) four times in ten, so goals are hit."""
     import torch
@@ -116,11 +155,13 @@ def check_multigrid(n: int, steps: int, device, seed: int = 0) -> dict:
     start, obs = env.reset_random(n, gen, device)
     state = start
     n_done = n_goal = 0
+    err = 0.0
     for t in range(steps):
         image = multigrid_obs(state.grid, state.agent_pos, state.agent_dir,
                               p.agent_view_size)
         want = obs_plain(state.grid, state.agent_pos, state.agent_dir,
                          p.agent_view_size)
+        err = max(err, max_abs_diff(image, want))
         if not torch.equal(image, want):
             raise AssertionError(f'multigrid_obs != obs_plain at step {t}')
         args = (state.grid, state.agent_pos, state.agent_dir,
@@ -130,6 +171,7 @@ def check_multigrid(n: int, steps: int, device, seed: int = 0) -> dict:
         got = multigrid_step(*args)
         want = step_plain(*args)
         for k, (a, b) in enumerate(zip(got, want)):
+            err = max(err, max_abs_diff(a, b))
             if a.dtype == torch.float32:
                 a, b = a.view(torch.int32), b.view(torch.int32)
             if not torch.equal(a, b):
@@ -145,7 +187,7 @@ def check_multigrid(n: int, steps: int, device, seed: int = 0) -> dict:
         raise AssertionError(f'N={n}: no episode ended ({n_done}) or no goal '
                              f'reached ({n_goal}) in {steps} steps')
     return {'n': n, 'steps': steps, 'episodes_ended': n_done,
-            'goals': n_goal, 'max_abs_err': 0.0}
+            'goals': n_goal, 'max_abs_err': err}
 
 
 def gae_inputs(T, N, device, seed=0):
@@ -169,6 +211,34 @@ def check_gae(T, N, proper, device) -> dict:
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     err = float((got - want).abs().max())
     return {'T': T, 'N': N, 'proper': proper, 'max_abs_err': err}
+
+
+def weights(models: dict) -> dict:
+    """role -> {name: a CPU copy of the tensor}."""
+    return {r: {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+            for r, m in models.items()}
+
+
+def compare_weight_changes(before, cpu_after, card_after,
+                           tol: float = 1e-5) -> dict:
+    """Per role, how far the card's weight change (after minus before) is
+    from the CPU's, and the CPU's largest change.  Raises unless the first
+    is within ``tol`` and the second beyond it, so an update that moved
+    nothing cannot pass.  Both sides start from the same weights."""
+    res = {}
+    for r, start in before.items():
+        err = moved = 0.0
+        for k, b in start.items():
+            cpu_d, card_d = cpu_after[r][k] - b, card_after[r][k] - b
+            err = max(err, float((card_d - cpu_d).abs().max()))
+            moved = max(moved, float(cpu_d.abs().max()))
+        res[r] = {'max_abs_err_weight_change': err,
+                  'max_weight_change': moved}
+        if err > tol or moved <= tol:
+            raise AssertionError(f'card cycle != CPU cycle ({r}): weight '
+                                 f'changes differ by {err}, largest change '
+                                 f'{moved}, tolerance {tol}')
+    return res
 
 
 def check_cycle_against_cpu(device) -> dict:
@@ -202,11 +272,10 @@ def check_cycle_against_cpu(device) -> dict:
     actions = torch.as_tensor(np.random.default_rng(0).integers(0, 3, (t, n)))
     perms = torch.stack([torch.randperm(n, generator=gen)
                          for _ in range(args.ppo_epoch)])
-    tol = 1e-5
     out = []
     for dev in ('cpu', device):
         net = make_model(args, env, generator=torch.Generator().manual_seed(1))
-        before = {k: v.clone() for k, v in net.state_dict().items()}
+        before = weights({'agent': net})
         runner = AdversarialRunner(args, env, {'agent': net.to(dev)}, dev)
         sample = lambda logits, k: actions[k].to(dev)
 
@@ -215,23 +284,280 @@ def check_cycle_against_cpu(device) -> dict:
                 levels[n * (k + 1):n * (k + 2)].to(dev))
             return state, obs, seeds
         stats = runner.run(levels=levels[:n].to(dev), sample_action_fn=sample,
-                           reset_fn=reset, perms=perms.to(dev))
-        out.append((stats, {k: v.cpu() - before[k] for k, v in
-                            net.state_dict().items()}))
-    (cpu_stats, cpu_delta), (card_stats, card_delta) = out
-    err = max(float((card_delta[k] - cpu_delta[k]).abs().max())
-              for k in cpu_delta)
-    moved = max(float(d.abs().max()) for d in cpu_delta.values())
-    if (err > tol or moved <= tol
-            or card_stats['episodes'] != cpu_stats['episodes']):
-        raise AssertionError(f'card cycle != CPU cycle: weight changes '
-                             f'differ by {err}, largest change {moved}, '
-                             f'episodes {card_stats["episodes"]} vs '
+                           reset_fn=reset, perms={"agent": perms.to(dev)})
+        out.append((stats, weights({'agent': net})))
+    (cpu_stats, cpu_after), (card_stats, card_after) = out
+    res = compare_weight_changes(before, cpu_after, card_after)['agent']
+    if card_stats['episodes'] != cpu_stats['episodes']:
+        raise AssertionError(f'card cycle != CPU cycle: episodes '
+                             f'{card_stats["episodes"]} vs '
                              f'{cpu_stats["episodes"]}')
-    return {'max_abs_err_weight_change': err, 'max_weight_change': moved,
-            'episodes': card_stats['episodes'],
+    return {**res, 'episodes': card_stats['episodes'],
             'value_loss': [cpu_stats['agent_value_loss'],
                            card_stats['agent_value_loss']]}
+
+
+def check_adversary(env_name: str, n: int, device, seed: int = 0) -> dict:
+    """Kernel B5's construction step against its plain twin: whole
+    constructions from uniform random moves and draws, every output of
+    every move compared bit for bit.  Counts the levels whose agent move
+    landed on the goal (the random fallback), whose goal move was noisy,
+    and which came out unsolvable."""
+    import torch
+    from dcd_isaac_tpu_torch.envs.registry import make_env
+    from dcd_isaac_tpu_torch.kernels import multigrid_adversary as ma
+    env = make_env(env_name)
+    p = env.params
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state, _ = env.reset(n, gen, device)
+    fallback = noisy = 0
+    err = 0.0
+    for t in range(p.adversary_max_steps):
+        loc = torch.randint(0, p.adversary_action_dim, (n,), generator=gen,
+                            device=device, dtype=torch.int32)
+        u = torch.rand((n, 3), generator=gen, device=device)
+        got = ma.step(state, loc, u, p)
+        want = ma.step_plain(state, loc, u, p)
+        for k, b in want.items():
+            err = max(err, max_abs_diff(got[k], b))
+            if not torch.equal(got[k], b):
+                raise AssertionError(
+                    f'{env_name} N={n}: multigrid_adversary.step output '
+                    f'{k} != step_plain at move {t}')
+        xy = torch.stack([loc % (p.width - 2) + 1, loc // (p.width - 2) + 1],
+                         1)
+        placed = lambda key: ((getattr(state, key)[:, 0] < 0)
+                              & (got[key][:, 0] >= 0)
+                              & (got[key] != xy).any(1))
+        fallback += int(placed('agent_start_pos').sum())
+        noisy += int(placed('goal_pos').sum())
+        state = state.replace(**{k: got[k] for k in ma.STATE_OUT})
+    if not bool(got['done'].all()):
+        raise AssertionError(f'{env_name}: construction did not end')
+    return {'env': env_name, 'n': n, 'moves': p.adversary_max_steps,
+            'agent_on_goal_fallbacks': fallback, 'noisy_goals': noisy,
+            'unsolvable': int((~state.passable).sum()),
+            'mean_blocks': float(state.n_clutter_placed.float().mean()),
+            'max_abs_err': err}
+
+
+def random_levels(n, device, seed=0):
+    """n random 15x15 grids (35 % walls inside the border), with random
+    start and goal cells and every ninth start unplaced."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    grid = torch.where(torch.rand((n, 15, 15), generator=g, device=device)
+                       < 0.35, 2, 1).to(torch.uint8)
+    grid[:, 0] = grid[:, -1] = grid[:, :, 0] = grid[:, :, -1] = 2
+    cell = lambda: torch.randint(1, 14, (n, 2), generator=g, device=device,
+                                 dtype=torch.int32)
+    start, goal = cell(), cell()
+    start[::9] = -1
+    return grid, start, goal
+
+
+def check_shortest_path(n: int, device) -> dict:
+    """Kernel B5's BFS alone against its plain twin, exact."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels import multigrid_adversary as ma
+    grid, start, goal = random_levels(n, device)
+    got = ma.shortest_path(grid, start, goal, 170)
+    want = ma.shortest_path_plain(grid, start, goal, 170)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError('shortest_path != shortest_path_plain')
+    return {'n': n, 'passable': int(got[0].sum()),
+            'unsolvable': int((~got[0]).sum()),
+            'max_abs_err': max(max_abs_diff(a, b) for a, b in zip(got, want))}
+
+
+def teacher_inputs(batch: int, device, seed: int = 0):
+    """The teacher's projection inputs at the main path's widths: the
+    weights of a freshly built mg_25b_paired teacher, random adversary
+    images, time steps and random_z (e = scalar embed || random_z)."""
+    import torch
+    from dcd_isaac_tpu_torch.arguments import parser
+    from dcd_isaac_tpu_torch.envs.registry import make_env
+    from dcd_isaac_tpu_torch.utils.make_agent import make_model
+    env = make_env(ENV_NAME)
+    teacher = make_model(parser.parse_args(PAIRED_ARGS), env, 'adversary_env',
+                         torch.Generator().manual_seed(seed)).to(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    obs = {'image': torch.randint(0, 11, (batch, 15, 15, 3), generator=g,
+                                  device=device, dtype=torch.uint8),
+           'time_step': torch.randint(0, 28, (batch,), generator=g,
+                                      device=device),
+           'random_z': torch.rand((batch, 50), generator=g, device=device)}
+    with torch.no_grad():
+        e = teacher._scalar_and_z(obs)
+    return (obs['image'], teacher.image_conv.weight.detach(),
+            teacher.image_conv.bias.detach(), e.contiguous(),
+            teacher.core.w_i.weight.detach())
+
+
+def check_teacher_proj(batch: int, device) -> dict:
+    """Kernel B4 and its autograd gradients against the plain twin within
+    rtol = atol = 1e-4: each output sums 21 692 fp32 products, in another
+    order than cuBLAS and cuDNN sum them."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels.teacher_proj import (
+        teacher_proj, teacher_proj_plain,
+    )
+    img, *weights = teacher_inputs(batch, device)
+    g = torch.Generator(device=device)
+    g.manual_seed(1)
+    g_out = torch.randn((batch, weights[-1].shape[0]), generator=g,
+                        device=device)
+    errs = {}
+    for name, fn in (('kernel', teacher_proj), ('plain', teacher_proj_plain)):
+        leaves = [w.clone().requires_grad_() for w in weights]
+        out = fn(img, *leaves)
+        grads = torch.autograd.grad(out, leaves, g_out)
+        errs[name] = (out.detach(), grads)
+    (out, grads), (want, want_grads) = errs['kernel'], errs['plain']
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    names = ('conv_w', 'conv_b', 'e', 'w_i')
+    for k, a, b in zip(names, grads, want_grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f'grad {k}: {m}')
+    return {'B': batch, 'max_abs_err': float((out - want).abs().max()),
+            'max_abs_out': float(want.abs().max()),
+            'grad_max_abs_err': {k: float((a - b).abs().max()) for k, a, b
+                                 in zip(names, grads, want_grads)},
+            'grad_max_abs': {k: float(b.abs().max())
+                             for k, b in zip(names, want_grads)}}
+
+
+def near_goal_moves(rng, n, interior=13, n_walls=25):
+    """(27, n) goal-last teacher moves: 25 random walls, then a goal one or
+    two cells from the agent's cell, so scripted students reach it."""
+    import numpy as np
+    moves = np.zeros((n_walls + 2, n), np.int64)
+    loc = lambda x, y: (y - 1) * interior + (x - 1)
+    for i in range(n):
+        ax, ay = rng.integers(2, interior, 2)
+        dx, dy = [(1, 0), (0, 1), (-1, 0), (0, -1), (2, 0), (1, 1)][
+            rng.integers(6)]
+        moves[:n_walls, i] = rng.integers(0, interior * interior, n_walls)
+        moves[n_walls, i] = loc(ax + dx, ay + dy)
+        moves[n_walls + 1, i] = loc(ax, ay)
+    return moves
+
+
+def check_paired_cycle_against_cpu(device) -> dict:
+    """One PAIRED cycle (N = 8, T = 16, LSTM-32 for all three nets, 25
+    blocks, episodes capped at 6 steps) on the card and on the CPU, from
+    the same initial weights, teacher moves and draws, student actions and
+    permutations.  Each model's weight change must agree within 1e-5
+    between the two, and each model's largest change must exceed that."""
+    import numpy as np
+    import torch
+    from dcd_isaac_tpu_torch.arguments import parser
+    from dcd_isaac_tpu_torch.envs.multigrid.adversarial import (
+        AdversarialMultiGrid,
+    )
+    from dcd_isaac_tpu_torch.envs.multigrid.core import MultiGridParams
+    from dcd_isaac_tpu_torch.runner.adversarial_runner import (
+        AdversarialRunner,
+    )
+    from dcd_isaac_tpu_torch.utils.make_agent import make_all_models
+    n, t = 8, 16
+    args = parser.parse_args(PAIRED_ARGS + [
+        '--num_processes', str(n), '--num_steps', str(t),
+        '--recurrent_hidden_size', '32'])
+    env = AdversarialMultiGrid(MultiGridParams(
+        size=15, n_clutter=25, choose_goal_last=True, max_steps=6))
+    rng = np.random.default_rng(0)
+    T = env.adversary_rollout_steps
+    f32 = lambda *s: torch.tensor(rng.random(s), dtype=torch.float32)
+    moves = torch.tensor(near_goal_moves(rng, n))
+    u, z = f32(T, n, 3), f32(T, n, 50)
+    reset = {'start_dir': torch.tensor(rng.integers(0, 4, n)),
+             'random_z': f32(n, 50)}
+    acts = {r: torch.tensor(rng.integers(0, 3, (t, n)))
+            for r in ('agent', 'adversary_agent')}
+    gen = torch.Generator().manual_seed(0)
+    perms = {r: torch.stack([torch.randperm(n, generator=gen)
+                             for _ in range(5)])
+             for r in ('agent', 'adversary_agent', 'adversary_env')}
+    out = []
+    for dev in ('cpu', device):
+        models = {r: m.to(dev) for r, m in make_all_models(
+            args, env, torch.Generator().manual_seed(1)).items()}
+        before = weights(models)
+        runner = AdversarialRunner(args, env, models, dev)
+        script = lambda a: (lambda logits, k: a[k].to(dev))
+        stats = runner.run(
+            sample_action_fn=script(acts['agent']),
+            antagonist_sample_fn=script(acts['adversary_agent']),
+            teacher_sample_fn=script(moves),
+            teacher_draws_fn=lambda k: {'u': u[k].to(dev),
+                                        'random_z': z[k].to(dev)},
+            reset_draws={k: v.to(dev) for k, v in reset.items()},
+            perms={r: p.to(dev) for r, p in perms.items()})
+        out.append((stats, weights(models)))
+    (cpu_stats, cpu_after), (card_stats, card_after) = out
+    res = compare_weight_changes(before, cpu_after, card_after)
+    for k in ('episodes', 'num_blocks', 'passable_ratio'):
+        if card_stats[k] != cpu_stats[k]:
+            raise AssertionError(f'card PAIRED cycle != CPU cycle: {k} '
+                                 f'{card_stats[k]} vs {cpu_stats[k]}')
+    res['mean_env_return'] = [cpu_stats['mean_env_return'],
+                              card_stats['mean_env_return']]
+    res['episodes'] = card_stats['episodes']
+    return res
+
+
+def check_teacher_update_at_bench_size(device) -> dict:
+    """The teacher's construction and PPO update at bench.py's size: N =
+    8192 levels of MultiGrid-Adversarial-v0 (52 moves, LSTM-256, 5
+    epochs), so each epoch's projection takes B = 52 * 8192 = 425 984
+    rows, whose 21 692-wide embed would be 37 GB of fp32.  The backward
+    rebuilds it in row chunks; the phase fails unless the losses are
+    finite and the peak of allocated device memory stays under half the
+    card."""
+    import torch
+    from dcd_isaac_tpu_torch.arguments import parser
+    from dcd_isaac_tpu_torch.envs.registry import make_env
+    from dcd_isaac_tpu_torch.kernels.teacher_proj import teacher_proj
+    from dcd_isaac_tpu_torch.runner.adversarial_runner import (
+        AdversarialRunner,
+    )
+    from dcd_isaac_tpu_torch.utils.make_agent import make_all_models
+    n = 8192
+    args = parser.parse_args(PAIRED_ARGS + [
+        '--env_name', 'MultiGrid-Adversarial-v0', '--num_processes', str(n)])
+    env = make_env(args.env_name)
+    models = {r: m.to(device) for r, m in make_all_models(
+        args, env, torch.Generator().manual_seed(3)).items()}
+    runner = AdversarialRunner(args, env, models, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    launches = teacher_proj.launches
+    t0 = time.perf_counter()
+    _, t_rollout, t_next_value = runner._generate_levels()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    env_ret = torch.rand(n, generator=runner.generators['adversary_env'],
+                         device=device)
+    stats = runner._teacher_update(t_rollout, t_next_value, env_ret)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(device)
+    total = torch.cuda.get_device_properties(device).total_memory
+    stats = {k: float(v) for k, v in stats.items()}
+    bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
+    if bad or peak > total / 2:
+        raise AssertionError(f'teacher update at N={n}: non-finite {bad}, '
+                             f'peak {peak / 2**30:.2f} GiB of '
+                             f'{total / 2**30:.2f} GiB')
+    return {'n': n, 'update_rows': env.adversary_rollout_steps * n,
+            'generate_seconds': t1 - t0, 'update_seconds': t2 - t1,
+            'peak_allocated_gib': peak / 2**30,
+            'teacher_proj_launches': teacher_proj.launches - launches,
+            'stats': stats}
 
 
 def view_cells_read(grid, agent_pos, agent_dir, v: int) -> int:
@@ -246,6 +572,15 @@ def view_cells_read(grid, agent_pos, agent_dir, v: int) -> int:
     inb = (c[..., 0] >= 0) & (c[..., 0] < W) & (c[..., 1] >= 0) & (
         c[..., 1] < H)
     return int(inb.sum()) - n
+
+
+def bound(nbytes, flops):
+    """(least ms for the work, 'bytes' or 'operations'): the larger of the
+    bytes over the HBM rate and the fp32 operations over the peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops),
+            'bytes' if t_bytes >= t_ops else 'operations')
 
 
 def time_kernels(device) -> dict:
@@ -287,12 +622,6 @@ def time_kernels(device) -> dict:
     # fp32 operations: the reward (3 per env); GAE about 12 per element.
     step_flops, obs_flops, gae_flops = 3 * n, 0, 12 * MAIN_T * n
 
-    def bound(nbytes, flops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS * 1e3
-        return (max(t_bytes, t_ops),
-                'bytes' if t_bytes >= t_ops else 'operations')
-
     out = {}
     for name, fn, plain, nbytes, flops, inner in (
             ('multigrid_step', lambda: multigrid_step(*step_args),
@@ -305,6 +634,75 @@ def time_kernels(device) -> dict:
         out[name] = {'ms': graph_ms(fn, inner),
                      'plain_ms': device_ms(plain, 1, 20),
                      'bound_ms': b_ms, 'bound_by': b_by}
+    return out
+
+
+def time_teacher_kernels(device) -> dict:
+    """Kernel B5 (a construction move, the final move with its BFS, the BFS
+    alone) at N = 32 and kernel B4 at B = 32 (a construction step) and
+    B = 27 * 32 (the teacher update), with their plain twins and bounds;
+    for B4 also ``torch.matmul`` of the materialised embed by W_i
+    (``gemm_matmul_ms``), a yardstick the port never calls."""
+    import torch
+    from dcd_isaac_tpu_torch.envs.registry import make_env
+    from dcd_isaac_tpu_torch.kernels import multigrid_adversary as ma
+    from dcd_isaac_tpu_torch.kernels.teacher_proj import (
+        embed_plain, teacher_proj, teacher_proj_plain,
+    )
+    env = make_env(ENV_NAME)
+    p = env.params
+    n = MAIN_N
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    moves = lambda: torch.randint(0, p.adversary_action_dim, (n,),
+                                  generator=gen, device=device,
+                                  dtype=torch.int32)
+    state, _ = env.reset(n, gen, device)
+    states = []
+    for t in range(p.adversary_max_steps - 1):
+        state, _, _ = env.step_adversary(state, moves(), gen)
+        states.append(state)
+    u = torch.rand((n, 3), generator=gen, device=device)
+    loc = moves()
+    cells = p.width * p.height
+    # per level: the grid and ~64 bytes of state, loc and u read; the grid,
+    # ~42 bytes of state, the image and done written
+    step_bytes = n * (cells + 64 + cells + 42 + 3 * cells + 1)
+    grid, start, goal = random_levels(n, device)
+    bfs_bytes = n * (cells + 16 + 5)
+    out = {}
+    with torch.no_grad():
+        for name, st in (('multigrid_adversary_step', states[10]),
+                         ('multigrid_adversary_step_final', states[-1])):
+            b_ms, b_by = bound(step_bytes, 0)
+            out[name] = {
+                'ms': graph_ms(lambda: ma.step(st, loc, u, p), 200),
+                'plain_ms': device_ms(lambda: ma.step_plain(st, loc, u, p),
+                                      1, 20),
+                'bound_ms': b_ms, 'bound_by': b_by}
+        b_ms, b_by = bound(bfs_bytes, 0)
+        out['multigrid_shortest_path'] = {
+            'ms': graph_ms(lambda: ma.shortest_path(grid, start, goal, 170),
+                           200),
+            'plain_ms': device_ms(
+                lambda: ma.shortest_path_plain(grid, start, goal, 170), 1, 20),
+            'bound_ms': b_ms, 'bound_by': b_by}
+        for batch, inner in ((MAIN_N, 20), (27 * MAIN_N, 5)):
+            args = teacher_inputs(batch, device)
+            img, conv_w, conv_b, e, w_i = args
+            n_out, k = w_i.shape
+            conv_dim = k - e.shape[1]
+            nbytes = (w_i.numel() * 4 + img.numel() + conv_w.numel() * 4
+                      + conv_b.numel() * 4 + e.numel() * 4 + batch * n_out * 4)
+            flops = 2 * batch * k * n_out + 2 * 27 * batch * conv_dim
+            b_ms, b_by = bound(nbytes, flops)
+            a = embed_plain(img, conv_w, conv_b, e)
+            out[f'teacher_proj_b{batch}'] = {
+                'ms': graph_ms(lambda: teacher_proj(*args), inner),
+                'plain_ms': device_ms(lambda: teacher_proj_plain(*args), 1, 10),
+                'bound_ms': b_ms, 'bound_by': b_by,
+                'gemm_matmul_ms': device_ms(lambda: torch.matmul(a, w_i.T), 1,
+                                            10)}
     return out
 
 
@@ -346,42 +744,93 @@ def main() -> int:
     torch.cuda.synchronize()
     log('kernels_vs_plain', t0, **checks)
     t0 = time.perf_counter()
+    adv = [check_adversary(name, n, device, seed=k)
+           for k, name in enumerate(ADVERSARY_ENVS) for n in (MAIN_N, 4096)]
+    bfs = check_shortest_path(4096, device)
+    torch.cuda.synchronize()
+    fallbacks = sum(c['agent_on_goal_fallbacks'] for c in adv)
+    unsolvable = sum(c['unsolvable'] for c in adv)
+    noisy = sum(c['noisy_goals'] for c in adv)
+    if not (fallbacks and unsolvable and noisy and bfs['unsolvable']):
+        raise AssertionError(
+            f'the constructions missed a case: {fallbacks} agent-on-goal '
+            f'fallbacks, {noisy} noisy goals, {unsolvable} unsolvable '
+            f'levels, {bfs["unsolvable"]} unsolvable BFS levels')
+    log('adversary_vs_plain', t0, step=adv, shortest_path=bfs)
+    t0 = time.perf_counter()
+    proj = [check_teacher_proj(b, device) for b in (MAIN_N, 27 * MAIN_N)]
+    log('teacher_proj_vs_plain', t0, checks=proj)
+    t0 = time.perf_counter()
     log('cycle_vs_cpu', t0, **check_cycle_against_cpu(device))
     t0 = time.perf_counter()
+    log('paired_cycle_vs_cpu', t0, **check_paired_cycle_against_cpu(device))
+    t0 = time.perf_counter()
+    log('teacher_update_bench_size', t0,
+        **check_teacher_update_at_bench_size(device))
+    t0 = time.perf_counter()
     times = time_kernels(device)
+    times.update(time_teacher_kernels(device))
     log('kernel_times', t0, **times)
 
-    # -- 4. the slice: two DR training cycles ------------------------------
-    t0 = time.perf_counter()
+    # -- 4. the slices ------------------------------------------------------
     from dcd_isaac_tpu_torch import train
+    from dcd_isaac_tpu_torch.kernels import multigrid_adversary
+    from dcd_isaac_tpu_torch.kernels.teacher_proj import teacher_proj
     wrappers = {'multigrid_step': multigrid_step,
-                'multigrid_obs': multigrid_obs, 'gae': gae}
-    for w in wrappers.values():
-        w.launches = 0
-    _, history = train.main(SLICE_ARGS)
-    torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
-    cycles = len(history)
-    for stats in history:
-        bad = {k: v for k, v in stats.items()
-               if not math.isfinite(float(v))}
-        if bad:
-            raise AssertionError(f'non-finite stats: {bad}')
-    episodes = sum(s['episodes'] for s in history)
-    need = {'multigrid_step': cycles * MAIN_T, 'multigrid_obs': cycles,
-            'gae': cycles}
-    short = {k: (launches[k], need[k]) for k in need if launches[k] < need[k]}
-    if cycles != 2 or short or episodes <= 0:
-        raise AssertionError(f'slice: cycles={cycles} launches short={short} '
-                             f'episodes={episodes}')
-    log('slice', t0, cycles=cycles, launches=launches, episodes=episodes,
-        cycle_seconds=[s['cycle_time_s'] for s in history],
-        stats=history[-1])
+                'multigrid_obs': multigrid_obs, 'gae': gae,
+                'multigrid_adversary_step': multigrid_adversary.step,
+                'multigrid_shortest_path': multigrid_adversary.shortest_path,
+                'teacher_proj': teacher_proj}
+
+    def run_slice(phase, argv, cycles, need_per_cycle):
+        t0 = time.perf_counter()
+        for w in wrappers.values():
+            w.launches = 0
+        _, history = train.main(argv)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        for stats in history:
+            bad = {k: v for k, v in stats.items()
+                   if not math.isfinite(float(v))}
+            if bad:
+                raise AssertionError(f'{phase}: non-finite stats: {bad}')
+        short = {k: (launches[k], cycles * v)
+                 for k, v in need_per_cycle.items()
+                 if launches[k] < cycles * v}
+        episodes = sum(s['episodes'] for s in history)
+        if len(history) != cycles or short or episodes <= 0:
+            raise AssertionError(f'{phase}: cycles={len(history)} launches '
+                                 f'short={short} episodes={episodes}')
+        log(phase, t0, cycles=cycles, launches=launches, episodes=episodes,
+            cycle_seconds=[s['cycle_time_s'] for s in history],
+            stats=history[-1])
+        return launches
+
+    by_path = {
+        'dr': run_slice('slice', SLICE_ARGS, 2, {
+            'multigrid_step': MAIN_T, 'multigrid_obs': 1, 'gae': 1,
+            'multigrid_shortest_path': 1}),
+        'paired': run_slice('paired_slice', PAIRED_ARGS, 2, {
+            'multigrid_adversary_step': 27, 'teacher_proj': 27 + 1 + 5,
+            'multigrid_step': 2 * MAIN_T, 'multigrid_obs': 2, 'gae': 3}),
+    }
+    run_slice('bench_env_slice', BENCH_ENV_ARGS, 1, {
+        'multigrid_adversary_step': 52, 'teacher_proj': 52 + 1 + 5,
+        'multigrid_step': 2 * MAIN_T, 'gae': 3})
 
     # -- 5. kernels line and result ----------------------------------------
     mg_err = max(c['max_abs_err'] for c in checks['multigrid'])
     errs = {'multigrid_step': mg_err, 'multigrid_obs': mg_err,
-            'gae': max(c['max_abs_err'] for c in checks['gae'])}
+            'gae': max(c['max_abs_err'] for c in checks['gae']),
+            'multigrid_adversary_step': max(c['max_abs_err'] for c in adv),
+            'multigrid_shortest_path': bfs['max_abs_err'],
+            'teacher_proj': max(c['max_abs_err'] for c in proj)}
+    times['teacher_proj'] = times.pop(f'teacher_proj_b{MAIN_N}')
+    big = times.pop(f'teacher_proj_b{27 * MAIN_N}')
+    times['teacher_proj'].update({f'{k}_b{27 * MAIN_N}': v
+                                  for k, v in big.items()})
+    times['multigrid_adversary_step']['ms_final_move'] = times.pop(
+        'multigrid_adversary_step_final')['ms']
     meta = {
         'multigrid_step': ('dcd_isaac_tpu_torch/csrc/multigrid_step.cu',
                            'dcd_isaac_tpu/envs/multigrid/core.py:306'),
@@ -389,9 +838,19 @@ def main() -> int:
                           'dcd_isaac_tpu/envs/multigrid/core.py:265'),
         'gae': ('dcd_isaac_tpu_torch/csrc/gae.cu',
                 'dcd_isaac_tpu/algos/storage.py:66'),
+        'multigrid_adversary_step': (
+            'dcd_isaac_tpu_torch/csrc/multigrid_adversary.cu',
+            'dcd_isaac_tpu/envs/multigrid/adversarial.py:102'),
+        'multigrid_shortest_path': (
+            'dcd_isaac_tpu_torch/csrc/multigrid_adversary.cu',
+            'dcd_isaac_tpu/envs/multigrid/core.py:369'),
+        'teacher_proj': ('dcd_isaac_tpu_torch/csrc/teacher_proj.cu',
+                         'dcd_isaac_tpu/models/multigrid_models.py:120'),
     }
     kernels = [{'name': name, 'route': 'cuda', 'source': src,
-                'replaces': rep, 'launches': launches[name],
+                'replaces': rep,
+                'launches': sum(c[name] for c in by_path.values()),
+                'launches_by_path': {k: c[name] for k, c in by_path.items()},
                 'max_abs_err': errs[name], **times[name],
                 'library_ms': None}
                for name, (src, rep) in meta.items()]

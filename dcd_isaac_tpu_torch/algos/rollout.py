@@ -1,4 +1,4 @@
-"""Student rollout (port of dcd_isaac_tpu/algos/rollout.py:29-298).
+"""Student and teacher rollouts (port of dcd_isaac_tpu/algos/rollout.py).
 
 A Python loop over T steps of a batch of N envs replaces the JAX
 ``lax.scan``: policy forward, env step (kernel 1), the rollout-final forced
@@ -12,6 +12,10 @@ per slot where an episode really ended; the default replays the same level
 against the rollout's initial state.  ``sample_action_fn(logits, t)`` lets
 a caller (the parity tests) choose the actions; the default samples from
 the policy with the rollout's generator.
+
+The teacher's construction rollout (``make_adversary_rollout``) is the same
+loop over ``adversary_max_steps`` moves of kernel B5, with zero rewards
+until the runner writes the regret into the last step.
 """
 
 from __future__ import annotations
@@ -49,6 +53,15 @@ class RolloutConfig:
 def _select(mask: torch.Tensor, new: dict, old: dict) -> dict:
     return {k: torch.where(mask.reshape(mask.shape + (1,) * (v.dim() - 1)),
                            v, old[k]) for k, v in new.items()}
+
+
+def _stack(steps) -> Rollout:
+    """The Rollout of a list of per-step dicts (obs a dict of its own)."""
+    stacked = {k: torch.stack([s[k] for s in steps])
+               for k in steps[0] if k != 'obs'}
+    stacked['obs'] = {k: torch.stack([s['obs'][k] for s in steps])
+                      for k in steps[0]['obs']}
+    return Rollout(**stacked)
 
 
 def make_student_rollout(env, model, cfg: RolloutConfig,
@@ -136,10 +149,6 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
             # Bootstrap value of the final obs (reference next_value).
             _, next_value, _ = model(carry.obs, carry.rnn_carry, carry.mask)
 
-        stacked = {k: torch.stack([s[k] for s in steps])
-                   for k in steps[0] if k != 'obs'}
-        stacked['obs'] = {k: torch.stack([s['obs'][k] for s in steps])
-                          for k in steps[0]['obs']}
         has_epi = carry.epi_count > 0
         zero = torch.zeros((n,), device=dev)
         stats = {
@@ -148,7 +157,7 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
             'max_return': torch.where(has_epi, carry.ret_max, zero),
             'episode_count': carry.epi_count,
         }
-        return carry, Rollout(**stacked), next_value, stats
+        return carry, _stack(steps), next_value, stats
 
     return rollout
 
@@ -171,3 +180,50 @@ def initial_step_carry(model, env_state, obs, level_seeds=None) -> StepCarry:
         ret_sum=zeros,
         ret_max=torch.full((n,), float('-inf'), device=dev),
     )
+
+
+def make_adversary_rollout(env, model, adv_steps: int,
+                           sample_action_fn: Callable = None,
+                           draws_fn: Callable = None):
+    """Build ``rollout(env_state, obs, generator) → (env_state, Rollout,
+    next_value)``, the teacher's construction (rollout.py:300-364).
+
+    Rewards are zero (the runner replaces the last by the teacher's
+    return), masks follow ``done``, ``bad_masks`` are 1 and
+    ``trunc_values`` 0.  ``sample_action_fn(logits, t)`` chooses the moves
+    and ``draws_fn(t)`` gives ``step_adversary``'s draws (the parity tests
+    inject both); by default the moves are sampled from the policy and the
+    draws taken, with ``generator``.
+    """
+    T = adv_steps
+
+    def rollout(env_state, obs: dict, generator: torch.Generator = None):
+        if sample_action_fn is None:
+            sample = lambda logits, t: categorical_sample(logits, generator)
+        else:
+            sample = sample_action_fn
+        n = obs['image'].shape[0]
+        dev = obs['image'].device
+        rnn_carry = model.initial_carry((n,), dev)
+        mask = torch.zeros((n,), device=dev)
+        zeros = torch.zeros((n,), device=dev)
+        steps = []
+        with torch.no_grad():
+            for t in range(T):
+                logits, value, rnn_carry = model(obs, rnn_carry, mask)
+                action = sample(logits, t)
+                log_prob = categorical_log_prob(logits, action)
+                env_state, next_obs, done = env.step_adversary(
+                    env_state, action, generator,
+                    draws_fn(t) if draws_fn is not None else None)
+                steps.append(dict(
+                    obs=obs, actions=action, log_probs=log_prob,
+                    values=value, rewards=zeros, masks_pre=mask, dones=done,
+                    bad_masks=torch.ones_like(zeros), trunc_values=zeros))
+                mask = 1.0 - done.float()
+                obs = next_obs
+            _, next_value, _ = model(obs, rnn_carry, mask)
+
+        return env_state, _stack(steps), next_value
+
+    return rollout

@@ -31,6 +31,13 @@ class Rollout:
     bad_masks: torch.Tensor      # (T, N) 0 = time-limit (truncated) end at t
     trunc_values: torch.Tensor   # (T, N) V(truncated obs) at truncations
 
+    def replace_final_reward(self, returns: torch.Tensor) -> 'Rollout':
+        """The teacher's return becomes the final-step reward
+        (storage.py:61)."""
+        rewards = self.rewards.clone()
+        rewards[-1] = returns
+        return dataclasses.replace(self, rewards=rewards)
+
 
 def compute_gae(rollout: Rollout, next_value: torch.Tensor, gamma: float,
                 gae_lambda: float, use_proper_time_limits: bool = False

@@ -1,9 +1,13 @@
 """Carry weights from the JAX student to the port.
 
-``from_flax`` takes the flax parameter tree of a student ``MultigridNetwork``
-(as numpy arrays, with or without the top-level ``'params'`` key) and
-returns a state dict of the port's ``MultigridNetwork`` that computes the
-same function.
+``from_flax`` takes the flax parameter tree of a ``MultigridNetwork``, the
+student's or the teacher's (as numpy arrays, with or without the top-level
+``'params'`` key), and returns a state dict of the port's
+``MultigridNetwork`` that computes the same function.  The teacher's tree
+has the same names at other widths: the conv-128 kernel, a scalar embed of
+``adversary_max_steps + 1`` → 10 and a 21 692-row input kernel whose rows
+are the conv features in (h, w, c) order, then the scalar embed, then
+``random_z``, the order of the port's embed and of kernel B4.
 """
 
 from __future__ import annotations

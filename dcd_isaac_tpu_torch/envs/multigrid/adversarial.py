@@ -1,10 +1,13 @@
 """Adversarial (UED) MultiGrid environment, batched PyTorch port.
 
-Port of ``dcd_isaac_tpu/envs/multigrid/adversarial.py`` for the domain
-randomization slice: ``reset_random``, ``get_level``, ``reset_to_level``,
-``reset_agent`` and ``step``.  Every method takes and returns a batch of N
-envs.  The teacher's construction (``step_adversary``), ``mutate_level``
-and ``reset_alp_gmm`` come with the slices that need them.
+Port of ``dcd_isaac_tpu/envs/multigrid/adversarial.py``: the teacher's
+construction (``reset``, ``step_adversary``), ``reset_random``,
+``get_level``, ``reset_to_level``, ``reset_agent`` and ``step``.  Every
+method takes and returns a batch of N envs.  ``step_adversary`` is kernel
+B5 (``kernels/multigrid_adversary.py``).  The random draws of the
+construction come from a ``torch.Generator``; the ``draws`` arguments
+replace them (the parity tests inject them).  ``mutate_level`` and
+``reset_alp_gmm`` come with the slices that need them.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from ...kernels import multigrid_adversary
 from .constants import EMPTY, GOAL, WALL
 from .core import (
     MultiGridParams, MultiGridState, compute_metrics, decode_grid,
@@ -29,6 +33,79 @@ class AdversarialMultiGrid:
     @property
     def num_actions(self) -> int:
         return 7
+
+    @property
+    def adversary_num_actions(self) -> int:
+        return self.params.adversary_action_dim
+
+    @property
+    def adversary_rollout_steps(self) -> int:
+        return self.params.adversary_max_steps
+
+    @property
+    def adversary_obs_shapes(self) -> dict:
+        p = self.params
+        return {'image': (p.width, p.height, 3), 'time_step': (),
+                'random_z': (p.random_z_dim,)}
+
+    def _adversary_obs(self, state: MultiGridState, image: torch.Tensor,
+                       random_z: torch.Tensor) -> dict:
+        return {'image': image, 'time_step': state.adv_step_count,
+                'random_z': random_z}
+
+    def _random_z(self, n, generator, device, draws):
+        if draws is not None and 'random_z' in draws:
+            return draws['random_z'].to(device=device, dtype=torch.float32)
+        return torch.rand((n, self.params.random_z_dim), generator=generator,
+                          device=device)
+
+    def reset(self, n: int, generator: torch.Generator = None, device=None,
+              draws: Optional[dict] = None):
+        """N empty grids ready for construction (adversarial.py:93-100).
+
+        A random start direction and ``random_z`` per level, drawn from
+        ``generator`` unless ``draws`` gives ``start_dir`` (N,) and
+        ``random_z`` (N, random_z_dim).  Returns (state, adversary obs).
+        """
+        draws = draws or {}
+        device = torch.device(device if device is not None
+                              else generator.device)
+        if 'start_dir' in draws:
+            start_dir = draws['start_dir'].to(device=device,
+                                              dtype=torch.int32)
+        else:
+            start_dir = torch.randint(0, 4, (n,), generator=generator,
+                                      device=device, dtype=torch.int32)
+        state = init_state(self.params, n, device).replace(
+            agent_start_dir=start_dir)
+        random_z = self._random_z(n, generator, device, draws)
+        return state, self._adversary_obs(state, encode_grid(state),
+                                          random_z)
+
+    def step_adversary(self, state: MultiGridState, loc: torch.Tensor,
+                       generator: torch.Generator = None,
+                       draws: Optional[dict] = None):
+        """One construction move of every level → (state, obs, done).
+
+        ``loc`` (N,) indexes the interior cells (adversarial.py:102-204).
+        The draws (``u`` (N, 3): the noisy goal's coin and cell, the
+        agent's cell when it lands on the goal; ``random_z`` of the next
+        obs) come from ``generator`` unless ``draws`` gives them.
+        """
+        draws = draws or {}
+        n = state.grid.shape[0]
+        dev = state.grid.device
+        u = draws.get('u')
+        if u is None:
+            u = torch.rand((n, 3), generator=generator, device=dev)
+        out = multigrid_adversary.step(
+            state, loc.to(torch.int32).contiguous(),
+            u.to(dev, torch.float32).contiguous(), self.params)
+        state = state.replace(
+            **{k: out[k] for k in multigrid_adversary.STATE_OUT})
+        random_z = self._random_z(n, generator, dev, draws)
+        return (state, self._adversary_obs(state, out['image'], random_z),
+                out['done'])
 
     def reset_random(self, n: int, generator: torch.Generator, device=None):
         """N domain-randomized levels (adversarial.py:206-257).

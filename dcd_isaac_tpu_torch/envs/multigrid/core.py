@@ -4,8 +4,10 @@ Port of ``dcd_isaac_tpu/envs/multigrid/core.py``.  The state is one batch of
 N envs: a (N, W, H) uint8 grid of MiniGrid cell codes indexed ``[x, y]``
 (``flat = x * H + y``, the JAX layout) and small int32/bool fields, so every
 function works on the whole batch at once instead of under ``vmap``.  The
-agent step and the view gather are kernel 1 (``kernels/multigrid_step.py``);
-the rest is plain PyTorch on the state's device.
+agent step and the view gather are kernel B1 (``kernels/multigrid_step.py``),
+the BFS of ``shortest_path`` is kernel B5's second entry point
+(``kernels/multigrid_adversary.py``); the rest is plain PyTorch on the
+state's device.
 """
 
 from __future__ import annotations
@@ -15,8 +17,12 @@ from typing import Tuple
 
 import torch
 
+from ...kernels import multigrid_adversary
+from ...kernels.multigrid_adversary import (
+    encode_plain, sample_cell_from_uniform,
+)
 from ...kernels.multigrid_step import multigrid_obs, multigrid_step
-from .constants import AGENT, EMPTY, GOAL, TYPE_COLOR, UNSEEN, WALL
+from .constants import AGENT, EMPTY, GOAL, UNSEEN, WALL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +73,8 @@ class MultiGridState:
     agent_start_dir: torch.Tensor       # (N,) int32
     goal_pos: torch.Tensor              # (N, 2) int32
     adv_step_count: torch.Tensor        # (N,) int32
+    adv_max_steps: torch.Tensor         # (N,) int32; per level when the
+    #                                     first move sets the block budget
     n_clutter_placed: torch.Tensor      # (N,) int32
     passable: torch.Tensor              # (N,) bool
     shortest_path_length: torch.Tensor  # (N,) int32
@@ -111,6 +119,7 @@ def init_state(params: MultiGridParams, n: int, device) -> MultiGridState:
         agent_start_dir=zero,
         goal_pos=neg,
         adv_step_count=zero,
+        adv_max_steps=torch.full((n,), params.adversary_max_steps, **i32),
         n_clutter_placed=zero,
         passable=torch.zeros((n,), dtype=torch.bool, device=device),
         shortest_path_length=torch.full((n,), params.max_shortest_path, **i32),
@@ -127,31 +136,13 @@ def sample_cell_from_mask(mask: torch.Tensor, generator: torch.Generator
     distribution is the same, the random stream is not).  An empty mask
     gives cell (0, 0).  Returns (N, 2) int32.
     """
-    n, _, h = mask.shape
-    flat = mask.reshape(n, -1)
-    count = flat.sum(1)
-    u = torch.rand((n,), generator=generator, device=mask.device)
-    k = torch.minimum((u * count).long(), (count - 1).clamp(min=0))
-    idx = (flat.cumsum(1) > k[:, None]).int().argmax(1)
-    idx = torch.where(count > 0, idx, torch.zeros_like(idx))
-    return torch.stack([idx // h, idx % h], 1).int()
+    u = torch.rand((mask.shape[0],), generator=generator, device=mask.device)
+    return sample_cell_from_uniform(mask, u)
 
 
 def encode_grid(state: MultiGridState) -> torch.Tensor:
     """(N, W, H, 3) uint8 encoding with the agent overlay (core.py:158)."""
-    types = state.grid
-    colors = torch.tensor(TYPE_COLOR, device=types.device)[types.long()]
-    enc = torch.stack([types, colors, torch.zeros_like(types)], -1)
-    n = types.shape[0]
-    has_agent = state.agent_pos[:, 0] >= 0
-    x = state.agent_pos[:, 0].clamp(min=0).long()
-    y = state.agent_pos[:, 1].clamp(min=0).long()
-    rows = torch.arange(n, device=types.device)
-    code = torch.stack([torch.full_like(state.agent_dir, AGENT),
-                        torch.zeros_like(state.agent_dir),
-                        state.agent_dir], -1).to(torch.uint8)
-    enc[rows, x, y] = torch.where(has_agent[:, None], code, enc[rows, x, y])
-    return enc
+    return encode_plain(state.grid, state.agent_pos, state.agent_dir)
 
 
 def decode_grid(encoding: torch.Tensor):
@@ -214,48 +205,15 @@ def reset_agent(state: MultiGridState, params: MultiGridParams
     return state, gen_obs(state, params)
 
 
-# How many relaxation sweeps run between two checks for the fixed point; the
-# check reads a flag on the host, and extra sweeps at the fixed point change
-# nothing.
-_BFS_SWEEPS_PER_CHECK = 8
-
-
 def shortest_path(grid: torch.Tensor, start: torch.Tensor, goal: torch.Tensor,
                   params: MultiGridParams):
     """(passable, shortest_path_length) of each level (core.py:369-411).
 
-    4-neighbour min-relaxation of the distance from ``start`` over open
-    cells, iterated over the whole batch until no level changes.
+    The BFS of kernel B5 on the card, its plain twin on the CPU.
     """
-    inf = params.max_shortest_path
-    n = grid.shape[0]
-    open_mask = grid != WALL
-    valid = (start[:, 0] >= 0) & (goal[:, 0] >= 0)
-    rows = torch.arange(n, device=grid.device)
-    dist = torch.full(grid.shape, inf, dtype=torch.int32, device=grid.device)
-    dist[rows, start[:, 0].clamp(min=0).long(),
-         start[:, 1].clamp(min=0).long()] = 0
-    dist = torch.where(open_mask, dist, torch.full_like(dist, inf))
-    full = torch.full_like(dist, inf)
-    while True:
-        before = dist
-        for _ in range(_BFS_SWEEPS_PER_CHECK):
-            nbr = torch.minimum(
-                torch.minimum(
-                    torch.cat([full[:, :, :1], dist[:, :, :-1]], 2),
-                    torch.cat([dist[:, :, 1:], full[:, :, :1]], 2)),
-                torch.minimum(
-                    torch.cat([full[:, :1], dist[:, :-1]], 1),
-                    torch.cat([dist[:, 1:], full[:, :1]], 1)))
-            new = torch.minimum(dist, (nbr + 1).clamp(max=inf))
-            dist = torch.where(open_mask, new, full)
-        if not bool((dist != before).any()):
-            break
-    d = dist[rows, goal[:, 0].clamp(min=0).long(),
-             goal[:, 1].clamp(min=0).long()]
-    passable = valid & (d < inf)
-    spl = torch.where(passable, d, torch.full_like(d, inf))
-    return passable, spl
+    return multigrid_adversary.shortest_path(
+        grid, start.int().contiguous(), goal.int().contiguous(),
+        params.max_shortest_path)
 
 
 def compute_metrics(state: MultiGridState, params: MultiGridParams

@@ -37,6 +37,10 @@ SIGNATURES = {
     'dcd_multigrid_step': [_P] * 14 + [_I] * 5 + [_P],
     'dcd_multigrid_obs': [_P] * 4 + [_I] * 4 + [_P],
     'dcd_gae': [_P] * 7 + [_I, _I, _F, _F, _I, _P],
+    'dcd_adversary_step': [_P] * 24 + [_I] * 8 + [_F, _I, _P],
+    'dcd_multigrid_shortest_path': [_P] * 5 + [_I] * 4 + [_P],
+    'dcd_teacher_proj': [_P] * 7 + [_I] * 6 + [_P],
+    'dcd_teacher_proj_workspace': [_I] * 4,
 }
 
 
@@ -106,6 +110,20 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def check_tensor(name, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` has this dtype, shape and device and is
+    contiguous: what a kernel's raw pointer assumes."""
+    if t.dtype != dtype:
+        raise TypeError(f'{name}: expected {dtype}, got {t.dtype}')
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name}: expected shape {tuple(shape)}, '
+                         f'got {tuple(t.shape)}')
+    if t.device != device:
+        raise ValueError(f'{name}: on {t.device}, expected {device}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name}: must be contiguous')
 
 
 def check(rc: int, name: str) -> None:

@@ -102,25 +102,13 @@ def step_plain(grid, agent_pos, agent_dir, step_count, agent_done, action,
             done & ~new_done)
 
 
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype:
-        raise TypeError(f'{name}: expected {dtype}, got {t.dtype}')
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f'{name}: expected shape {tuple(shape)}, '
-                         f'got {tuple(t.shape)}')
-    if t.device != device:
-        raise ValueError(f'{name}: on {t.device}, expected {device}')
-    if not t.is_contiguous():
-        raise ValueError(f'{name}: must be contiguous')
-
-
 def _check_state(grid, agent_pos, agent_dir):
     if grid.dim() != 3:
         raise ValueError(f'grid: expected (N, W, H), got {tuple(grid.shape)}')
     n = grid.shape[0]
-    _check('grid', grid, torch.uint8, grid.shape, grid.device)
-    _check('agent_pos', agent_pos, torch.int32, (n, 2), grid.device)
-    _check('agent_dir', agent_dir, torch.int32, (n,), grid.device)
+    _build.check_tensor('grid', grid, torch.uint8, grid.shape, grid.device)
+    _build.check_tensor('agent_pos', agent_pos, torch.int32, (n, 2), grid.device)
+    _build.check_tensor('agent_dir', agent_dir, torch.int32, (n,), grid.device)
     return n
 
 
@@ -141,9 +129,9 @@ def multigrid_step(grid, agent_pos, agent_dir, step_count, agent_done,
     _see_through_only(see_through_walls)
     n = _check_state(grid, agent_pos, agent_dir)
     dev = grid.device
-    _check('step_count', step_count, torch.int32, (n,), dev)
-    _check('agent_done', agent_done, torch.bool, (n,), dev)
-    _check('action', action, torch.int32, (n,), dev)
+    _build.check_tensor('step_count', step_count, torch.int32, (n,), dev)
+    _build.check_tensor('agent_done', agent_done, torch.bool, (n,), dev)
+    _build.check_tensor('action', action, torch.int32, (n,), dev)
     if dev.type == 'cpu':
         return step_plain(grid, agent_pos, agent_dir, step_count, agent_done,
                           action, view_size, max_steps)

@@ -1,0 +1,142 @@
+"""Kernel B4: the teacher's conv-128 embed fused into its input projection.
+
+Replaces the forward of ``dcd_isaac_tpu/models/multigrid_models.py``
+``_core_sequence.zx_chunk`` (:120-152) with ``_embed`` (:75-89):
+``zx = [relu(conv3x3(img / 10) + b) flattened (h, w, c) || e] @ W_i^T``,
+with ``e`` (B, E) the scalar embed and ``random_z`` computed by the caller.
+The CUDA source is ``csrc/teacher_proj.cu``: a tiled fp32 GEMM whose
+prologue computes each K-tile of conv features from the image as it is
+consumed, so the (B, 21 692) activation never reaches device memory (the
+point of JAX's chunked hoist), split over K so that a construction step's
+B = 32 fills the card.  It is bound by W_i's bytes at B = 32 and by
+operations at the update's B = 27 * 32.
+
+The backward is plain PyTorch (:class:`TeacherProj`): it recomputes the
+embed in row chunks of about 0.5 GB, as JAX's checkpointed chunks do, and
+takes two ``torch.matmul`` and the conv's autograd per chunk, so the
+teacher update's memory stays bounded at ``bench.py``'s B = 52 * 8192; a
+hand-written backward is queued (ROADMAP queue B).  :func:`teacher_proj`
+takes the plain twin (:func:`teacher_proj_plain`, autograd throughout)
+for CPU tensors, and launches the kernel or raises for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+# The kernel's shape rules (csrc/teacher_proj.cu, which checks them again
+# in dcd_teacher_proj_workspace): the conv filters a multiple of its K-tile
+# kBK up to kMaxC, and K a multiple of 4 for its 16-byte copies of W_i.
+BK = 32
+MAX_FILTERS = 128
+# Rows of the embed the backward rebuilds at once: about 0.5 GB of fp32
+# in each (rows, K) transient, JAX's zx_chunk budget
+# (dcd_isaac_tpu/models/multigrid_models.py:127-135).
+CHUNK_BYTES = 5e8
+
+
+def embed_plain(img, conv_w, conv_b, e) -> torch.Tensor:
+    """(B, K) = [relu(conv(img / 10)) flattened (h, w, c) || e]."""
+    x = img.float() / 10.0
+    x = F.conv2d(x.permute(0, 3, 1, 2), conv_w, conv_b).permute(0, 2, 3, 1)
+    return torch.cat([F.relu(x.reshape(x.shape[0], -1)), e], -1)
+
+
+def teacher_proj_plain(img, conv_w, conv_b, e, w_i) -> torch.Tensor:
+    """(B, N) = embed_plain(...) @ W_i^T, in plain PyTorch."""
+    return embed_plain(img, conv_w, conv_b, e) @ w_i.T
+
+
+def _launch(img, conv_w, conv_b, e, w_i) -> torch.Tensor:
+    B, X, Y, _ = img.shape
+    C = conv_w.shape[0]
+    N, K = w_i.shape
+    E = e.shape[1]
+    lib = _build.library()
+    ws_floats = lib.dcd_teacher_proj_workspace(B, N, K, C)
+    if ws_floats < 0:
+        raise ValueError(f'teacher_proj: no kernel plan for C={C}, K={K}')
+    out = torch.empty((B, N), dtype=torch.float32, device=img.device)
+    ws = (torch.empty(ws_floats, dtype=torch.float32, device=img.device)
+          if ws_floats else out)
+    rc = lib.dcd_teacher_proj(
+        img.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(), e.data_ptr(),
+        w_i.data_ptr(), out.data_ptr(), ws.data_ptr(), B, X, Y, C, E, N,
+        torch.cuda.current_stream(img.device).cuda_stream)
+    _build.check(rc, 'teacher_proj')
+    return out
+
+
+class TeacherProj(torch.autograd.Function):
+    """The projection with a plain PyTorch backward.
+
+    ``forward(fwd, img, conv_w, conv_b, e, w_i)`` computes the output with
+    ``fwd`` (the kernel launch on the card); the backward recomputes the
+    embed ``rows`` at a time and returns the gradients of conv_w, conv_b,
+    e and w_i.
+    """
+
+    @staticmethod
+    def forward(ctx, fwd, img, conv_w, conv_b, e, w_i):
+        ctx.save_for_backward(img, conv_w, conv_b, e, w_i)
+        return fwd(img, conv_w, conv_b, e, w_i)
+
+    @staticmethod
+    def backward(ctx, grad):
+        img, conv_w, conv_b, e, w_i = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        rows = max(1, int(CHUNK_BYTES // (4 * w_i.shape[1])))
+        g_w = torch.zeros_like(w_i) if need[5] else None
+        g_conv_w, g_conv_b = torch.zeros_like(conv_w), torch.zeros_like(conv_b)
+        g_e = torch.empty_like(e)
+        for r in range(0, img.shape[0], rows):
+            g = grad[r:r + rows]
+            with torch.enable_grad():
+                leaves = [conv_w.detach().requires_grad_(),
+                          conv_b.detach().requires_grad_(),
+                          e[r:r + rows].detach().requires_grad_()]
+                a = embed_plain(img[r:r + rows], *leaves)
+            if g_w is not None:
+                g_w.addmm_(g.T, a.detach())
+            gw, gb, g_e[r:r + rows] = torch.autograd.grad(a, leaves, g @ w_i)
+            g_conv_w += gw
+            g_conv_b += gb
+        return (None, None, g_conv_w if need[2] else None,
+                g_conv_b if need[3] else None, g_e if need[4] else None, g_w)
+
+
+def teacher_proj(img, conv_w, conv_b, e, w_i) -> torch.Tensor:
+    """zx (B, N) of images (B, X, Y, 3) uint8; see :func:`teacher_proj_plain`.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel
+    (counted in ``teacher_proj.launches``) with the plain backward, or
+    raise.
+    """
+    if img.dim() != 4 or img.shape[-1] != 3:
+        raise ValueError(f'img: expected (B, X, Y, 3), got {tuple(img.shape)}')
+    B, X, Y, _ = img.shape
+    dev = img.device
+    C = conv_w.shape[0]
+    E = e.shape[-1]
+    K = (X - 2) * (Y - 2) * C + E
+    _build.check_tensor('img', img, torch.uint8, (B, X, Y, 3), dev)
+    _build.check_tensor('conv_w', conv_w, torch.float32, (C, 3, 3, 3), dev)
+    _build.check_tensor('conv_b', conv_b, torch.float32, (C,), dev)
+    _build.check_tensor('e', e, torch.float32, (B, E), dev)
+    _build.check_tensor('w_i', w_i, torch.float32, (w_i.shape[0], K), dev)
+    if dev.type == 'cpu':
+        return teacher_proj_plain(img, conv_w, conv_b, e, w_i)
+    if C % BK or C > MAX_FILTERS:
+        raise ValueError(f'conv filters {C}: the kernel takes a multiple of '
+                         f'{BK} up to {MAX_FILTERS}')
+    if K % 4:
+        raise ValueError(f'K = {K}: the kernel takes a multiple of 4')
+    out = TeacherProj.apply(_launch, img, conv_w, conv_b, e, w_i)
+    teacher_proj.launches += 1
+    return out
+
+
+teacher_proj.launches = 0

@@ -55,7 +55,9 @@ class RNNCore(nn.Module):
     """LSTM core with mask-reset semantics.
 
     ``w_i`` is the concatenation of flax's ``ii, if, ig, io`` kernels (no
-    bias), ``w_h`` of ``hi, hf, hg, ho`` with their biases.
+    bias), ``w_h`` of ``hi, hf, hg, ho`` with their biases.  The model
+    applies ``w_i`` itself (for the teacher through kernel B4) and passes
+    the projection in.
     """
 
     def __init__(self, input_size: int, hidden_size: int = 256,
@@ -86,19 +88,21 @@ class RNNCore(nn.Module):
         h2 = torch.sigmoid(o) * torch.tanh(c2)
         return (c2, h2), h2
 
-    def forward(self, carry: Carry, x: torch.Tensor, mask: torch.Tensor):
-        """One step: (carry, (B, F) input, (B,) mask) → (carry, (B, H))."""
-        return self._cell(carry, self.w_i(x), mask)
+    def forward_zx(self, carry: Carry, zx: torch.Tensor, mask: torch.Tensor):
+        """One step on the input projection ``zx`` = x @ w_i^T (B, 4H) and
+        the (B,) mask → (carry, (B, H))."""
+        return self._cell(carry, zx, mask)
 
-    def sequence(self, carry: Carry, xs: torch.Tensor, masks: torch.Tensor):
-        """Over time: ((T, B, F), (T, B)) → (carry, (T, B, H)).
+    def sequence_zx(self, carry: Carry, zx: torch.Tensor,
+                    masks: torch.Tensor):
+        """The recurrence over the input projections ``zx`` (T, B, 4H) and
+        the (T, B) masks → (carry, (T, B, H)) (common.py:sequence_zx).
 
-        The input projection has no time dependence and runs for all T at
-        once; the loop carries only the recurrence.
+        The caller projects all T steps at once (the projection has no time
+        dependence); the loop carries only the recurrence.
         """
-        zx = self.w_i(xs)
         outs = []
-        for t in range(xs.shape[0]):
+        for t in range(zx.shape[0]):
             carry, h = self._cell(carry, zx[t], masks[t])
             outs.append(h)
         return carry, torch.stack(outs)

@@ -1,13 +1,19 @@
-"""MultiGrid actor-critic network, student configuration.
+"""MultiGrid actor-critic network: the students and the teacher.
 
 Port of ``dcd_isaac_tpu/models/multigrid_models.py:29-191``: image/10, a
-3x3 VALID conv with ReLU, a one-hot of the direction through a small dense
-layer, an LSTM core, and 32-32 tanh actor and critic trunks giving logits
-and a value.  The conv runs NCHW and its output is permuted back to
+3x3 VALID conv with ReLU, a one-hot scalar (the student's direction, the
+teacher's time step) through a small dense layer, the teacher's
+``random_z``, an LSTM core, and 32-32 tanh actor and critic trunks giving
+logits and a value.  The conv runs NCHW and its output is permuted back to
 (h, w, c) before flattening, so the features come in the JAX model's NHWC
 flatten order and ``convert.from_flax`` needs no permutation of the LSTM
-input kernel.  The teacher configuration (conv-128 with the hoisted input
-projection, :120-152) comes with the PAIRED slice.
+input kernel.
+
+The teacher configuration (``make_agent``: conv-128 over the 15x15 grid,
+scalar_fc 10, random_z 50) has a 21 692-wide embed.  Where the conv embed
+is at least 4096 wide (JAX's threshold, :124) the input projection of the
+LSTM is kernel B4 (``kernels/teacher_proj.py``), in the one-step forward
+and in ``sequence`` alike, so the embed never reaches device memory.
 """
 
 from __future__ import annotations
@@ -19,20 +25,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.teacher_proj import teacher_proj
 from .common import RNNCore, mlp, orthogonal_
+
+# Conv embeds at least this wide take the fused projection (kernel B4).
+HOIST_MIN_CONV_DIM = 4096
 
 
 class MultigridNetwork(nn.Module):
     def __init__(self, num_actions: int, scalar_dim: int = 4,
                  scalar_fc: int = 5, conv_filters: int = 16,
                  conv_kernel: int = 3, view_size: int = 5,
+                 random_z_dim: int = 0,
                  recurrent_arch: str = 'lstm',
                  recurrent_hidden_size: int = 256,
                  actor_fc_layers: Sequence[int] = (32, 32),
                  value_fc_layers: Sequence[int] = (32, 32),
                  generator: torch.Generator = None):
+        """``view_size`` is the side of the square image: the student's
+        view or the teacher's whole grid."""
         super().__init__()
         self.scalar_dim = scalar_dim
+        self.random_z_dim = random_z_dim
         self.recurrent_arch = recurrent_arch
         self.recurrent_hidden_size = H = recurrent_hidden_size
         self.image_conv = nn.Conv2d(3, conv_filters, conv_kernel)
@@ -45,7 +59,9 @@ class MultigridNetwork(nn.Module):
                               b=2 * std, generator=generator)
         nn.init.zeros_(self.scalar_embed.bias)
         side = view_size - conv_kernel + 1
-        embed_dim = side * side * conv_filters + scalar_fc
+        conv_dim = side * side * conv_filters
+        self.fused_projection = conv_dim >= HOIST_MIN_CONV_DIM
+        embed_dim = conv_dim + scalar_fc + random_z_dim
         self.core = RNNCore(embed_dim, H, recurrent_arch, generator)
         self.actor_trunk = mlp((H, *actor_fc_layers), generator)
         self.actor_head = nn.Linear(actor_fc_layers[-1], num_actions)
@@ -63,15 +79,37 @@ class MultigridNetwork(nn.Module):
     def initial_carry(self, batch_dims, device=None):
         return self.core.initial_carry(batch_dims, device)
 
+    def _scalar_and_z(self, obs: dict) -> torch.Tensor:
+        """(..., scalar_fc + random_z_dim): the embedded one-hot scalar
+        (``direction``, else ``time_step``) and ``random_z``."""
+        scalar = obs['direction'] if 'direction' in obs else obs['time_step']
+        onehot = F.one_hot(scalar.long(), self.scalar_dim).float()
+        parts = [self.scalar_embed(onehot)]
+        if self.random_z_dim:
+            parts.append(obs['random_z'].float())
+        return torch.cat(parts, -1)
+
     def _embed(self, obs: dict) -> torch.Tensor:
-        """(..., v, v, 3) uint8 image and (...,) direction → (..., embed)."""
+        """(..., s, s, 3) uint8 image and the scalars → (..., embed)."""
         img = obs['image']
         lead = img.shape[:-3]
         x = img.reshape(-1, *img.shape[-3:]).float() / 10.0
         x = self.image_conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         x = F.relu(x.reshape(*lead, -1))
-        onehot = F.one_hot(obs['direction'].long(), self.scalar_dim).float()
-        return torch.cat([x, self.scalar_embed(onehot)], -1)
+        return torch.cat([x, self._scalar_and_z(obs)], -1)
+
+    def _zx(self, obs: dict) -> torch.Tensor:
+        """(..., 4H) input projection of the LSTM."""
+        if not self.fused_projection:
+            return self.core.w_i(self._embed(obs))
+        img = obs['image']
+        lead = img.shape[:-3]
+        e = self._scalar_and_z(obs)
+        zx = teacher_proj(
+            img.reshape(-1, *img.shape[-3:]).contiguous(),
+            self.image_conv.weight, self.image_conv.bias,
+            e.reshape(-1, e.shape[-1]).contiguous(), self.core.w_i.weight)
+        return zx.reshape(*lead, -1)
 
     def _heads(self, core: torch.Tensor):
         logits = self.actor_head(self.actor_trunk(core))
@@ -80,12 +118,12 @@ class MultigridNetwork(nn.Module):
 
     def forward(self, obs: dict, carry, mask: torch.Tensor):
         """One step: obs (B, ...), mask (B,) → (logits, value, carry)."""
-        carry, core = self.core(carry, self._embed(obs), mask)
+        carry, core = self.core.forward_zx(carry, self._zx(obs), mask)
         logits, value = self._heads(core)
         return logits, value, carry
 
     def sequence(self, obs: dict, carry, masks: torch.Tensor):
         """(T, B, ...) BPTT forward → (logits, values (T, B), carry)."""
-        carry, core = self.core.sequence(carry, self._embed(obs), masks)
+        carry, core = self.core.sequence_zx(carry, self._zx(obs), masks)
         logits, value = self._heads(core)
         return logits, value, carry

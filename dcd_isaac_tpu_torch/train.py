@@ -1,8 +1,9 @@
 """Training entry point of the port (dcd_isaac_tpu/train.py:26-131).
 
 ``python -m dcd_isaac_tpu_torch.train --env_name ... --ued_algo
-domain_randomization ...`` parses the port's arguments, builds env, model
-and runner on the card (``--no_cuda true`` asks for the CPU) and runs cycles
+paired ...`` parses the port's arguments, builds the env, the models of
+``--ued_algo`` (``make_all_models``) and the runner on the card
+(``--no_cuda true`` asks for the CPU) and runs cycles
 until ``--num_env_steps``, printing one JSON stats line per cycle.  CSV logs,
 checkpoints and in-training evaluation come with the entry-points slice.
 """
@@ -18,7 +19,7 @@ from .arguments import check_args, parser
 from .device import resolve_device
 from .envs.registry import make_env
 from .runner.adversarial_runner import AdversarialRunner
-from .utils.make_agent import make_model
+from .utils.make_agent import make_all_models
 
 
 def main(argv=None):
@@ -27,8 +28,9 @@ def main(argv=None):
     device = resolve_device('cpu' if args.no_cuda else None)
     env = make_env(args.env_name)
     init_gen = torch.Generator().manual_seed(args.seed)
-    model = make_model(args, env, generator=init_gen).to(device)
-    runner = AdversarialRunner(args, env, {'agent': model}, device)
+    models = {role: model.to(device) for role, model in
+              make_all_models(args, env, init_gen).items()}
+    runner = AdversarialRunner(args, env, models, device)
 
     num_updates = args.num_env_steps // args.num_steps // args.num_processes
     history = []

@@ -1,4 +1,8 @@
-"""Model factory (port of dcd_isaac_tpu/utils/make_agent.py), student only."""
+"""Model factory (port of dcd_isaac_tpu/utils/make_agent.py:15-66).
+
+The MultiGrid roles: the student ``agent``, the PAIRED antagonist
+``adversary_agent`` (a second student) and the teacher ``adversary_env``.
+"""
 
 from __future__ import annotations
 
@@ -10,13 +14,28 @@ from ..models.multigrid_models import MultigridNetwork
 
 def make_model(args, env, agent_type: str = 'agent',
                generator: torch.Generator = None) -> MultigridNetwork:
-    """The MultiGrid student network (utils/make_agent.py:45-56)."""
+    """The MultiGrid network of a role (utils/make_agent.py:27-56)."""
     family = env_family(args.env_name)
     if family != 'multigrid':
         raise NotImplementedError(f'{family} models are not ported yet')
-    if agent_type != 'agent':
-        raise NotImplementedError(
-            f'{agent_type} models come with the PAIRED slice')
+    if agent_type == 'adversary_env':
+        if not args.recurrent_adversary_env:
+            raise NotImplementedError(
+                'a non-recurrent teacher (--recurrent_adversary_env false) '
+                'is not ported yet')
+        p = env.params
+        return MultigridNetwork(
+            num_actions=env.adversary_num_actions,
+            conv_filters=128,
+            scalar_fc=10,
+            scalar_dim=p.adversary_max_steps + 1,
+            view_size=p.width,
+            random_z_dim=p.random_z_dim,
+            recurrent_arch=args.recurrent_arch,
+            recurrent_hidden_size=args.recurrent_hidden_size,
+            generator=generator)
+    if agent_type not in ('agent', 'adversary_agent'):
+        raise ValueError(f'unknown agent type {agent_type!r}')
     if not args.recurrent_agent:
         raise NotImplementedError(
             'a non-recurrent student is not ported yet')
@@ -31,3 +50,15 @@ def make_model(args, env, agent_type: str = 'agent',
         recurrent_arch=args.recurrent_arch,
         recurrent_hidden_size=args.recurrent_hidden_size,
         generator=generator)
+
+
+def make_all_models(args, env, generator: torch.Generator = None) -> dict:
+    """The models ``--ued_algo`` trains, by role (make_agent.py:60-66)."""
+    models = {'agent': make_model(args, env, 'agent', generator)}
+    if args.ued_algo in ('paired', 'flexible_paired'):
+        models['adversary_agent'] = make_model(
+            args, env, 'adversary_agent', generator)
+    if args.ued_algo in ('paired', 'flexible_paired', 'minimax'):
+        models['adversary_env'] = make_model(
+            args, env, 'adversary_env', generator)
+    return models

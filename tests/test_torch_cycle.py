@@ -83,7 +83,8 @@ def test_dr_cycle_matches_jax_reference():
     before = {k: v.clone() for k, v in net.state_dict().items()}
     sample, reset = scripted_port(env, actions, reset_levels)
     stats = runner.run(levels=torch.tensor(levels0), sample_action_fn=sample,
-                       reset_fn=reset, perms=torch.tensor(np.asarray(perms)))
+                       reset_fn=reset,
+                       perms={'agent': torch.tensor(np.asarray(perms))})
 
     assert_params_close(jnew.params, net, atol=1e-4)
     moved = max(float((v - before[k]).abs().max())
@@ -116,9 +117,13 @@ def test_train_entry_point_runs_dr_cycles(capsys):
 
 
 @pytest.mark.parametrize('flags,error', [
-    (['--ued_algo', 'paired'], NotImplementedError),
+    (['--ued_algo', 'alp_gmm'], NotImplementedError),
     (['--use_plr', 'true'], NotImplementedError),
     (['--bf16', 'true'], ValueError),
+    (['--ued_algo', 'paired', '--recurrent_adversary_env', 'false'],
+     NotImplementedError),
+    (['--ued_algo', 'paired', '--recurrent_adversary_env', 'true',
+      '--use_plr', 'true'], NotImplementedError),
 ])
 def test_unported_settings_are_refused(flags, error):
     with pytest.raises(error):

@@ -170,3 +170,50 @@ def test_wrappers_check_their_inputs():
         gae_mod.gae(z, z, z, z, z, z[0], 0.99, 0.95)      # float dones
     with pytest.raises(ValueError):
         gae_mod.gae(z, z.T, z.bool(), z, z, z[0], 0.99, 0.95)
+
+
+def test_teacher_kernel_wrappers_take_plain_twins_on_cpu(monkeypatch):
+    """Kernels B4 and B5 on CPU tensors: the plain twins, no build, no
+    launch counted."""
+    from dcd_isaac_tpu_torch.envs.registry import make_env
+    from dcd_isaac_tpu_torch.kernels import multigrid_adversary as ma
+    from dcd_isaac_tpu_torch.kernels import teacher_proj as tp
+    _no_build(monkeypatch)
+    env = make_env('MultiGrid-MiniAdversarial-v0')
+    gen = torch.Generator().manual_seed(0)
+    state, _ = env.reset(3, gen, 'cpu')
+    loc = torch.tensor([0, 5, 9], dtype=torch.int32)
+    u = torch.rand((3, 3), generator=gen)
+    counts = (ma.step.launches, ma.shortest_path.launches,
+              tp.teacher_proj.launches)
+    got, want = ma.step(state, loc, u, env.params), ma.step_plain(
+        state, loc, u, env.params)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    grid, pos, _ = _state(3)
+    assert all(torch.equal(a, b) for a, b in zip(
+        ma.shortest_path(grid, pos, pos.flip(1).contiguous(), 26),
+        ma.shortest_path_plain(grid, pos, pos.flip(1).contiguous(), 26)))
+    img = torch.randint(0, 11, (2, 7, 7, 3), dtype=torch.uint8)
+    w = (torch.rand(32, 3, 3, 3), torch.rand(32), torch.rand(2, 4),
+         torch.rand(8, 25 * 32 + 4))
+    assert torch.equal(tp.teacher_proj(img, *w),
+                       tp.teacher_proj_plain(img, *w))
+    assert counts == (ma.step.launches, ma.shortest_path.launches,
+                      tp.teacher_proj.launches)
+
+
+def test_teacher_kernel_wrappers_never_fall_back_off_the_cpu(monkeypatch):
+    from dcd_isaac_tpu_torch.kernels import multigrid_adversary as ma
+    from dcd_isaac_tpu_torch.kernels import teacher_proj as tp
+    _no_build(monkeypatch)
+    grid, pos, _ = _state(4, 'meta')
+    with pytest.raises(RuntimeError, match='kernel build requested'):
+        ma.shortest_path(grid, pos, pos, 26)
+    img = torch.zeros((2, 7, 7, 3), dtype=torch.uint8, device='meta')
+    w = [torch.zeros(s, device='meta')
+         for s in ((32, 3, 3, 3), (32,), (2, 4), (8, 25 * 32 + 4))]
+    with pytest.raises(RuntimeError, match='kernel build requested'):
+        tp.teacher_proj(img, *w)
+    with pytest.raises(ValueError, match='multiple of 32'):
+        tp.teacher_proj(img, w[0][:16].contiguous(), w[1][:16].contiguous(),
+                        w[2], torch.zeros((8, 25 * 16 + 4), device='meta'))
