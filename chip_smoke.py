@@ -15,12 +15,20 @@ Phases, each printing one JSON line with its wall time:
      move of whole random constructions at N = 32 and 4096 for four env
      variants (goal last with 25 blocks, goal first with 50, variable
      blocks, noisy goal), and its BFS alone (``shortest_path``) on 4096
-     random levels; the teacher's fused projection (``teacher_proj``) and
+     random levels; the LSTM recurrence of BPTT (``lstm_seq``) forward
+     and backward at T = 256, N = 32 and T = 52, N = 1024 (outputs within
+     1e-5, gradients within atol = rtol = 1e-4); the PPO loss
+     (``ppo_loss``) at the students' and the teacher's widths, its means
+     within 1e-6 relative of the float64 twin, its gradients within 1e-5 of
+     the twin's largest entry plus 1e-5 relative, both bit-identical over
+     two runs, with the advantage normalisation;
+     the teacher's fused projection (``teacher_proj``) and
      its gradients within rtol = atol = 1e-4 at B = 32 and 27 * 32; one
      small DR cycle and one small PAIRED cycle on the card against the
      same cycles on the CPU (plain twins) with their random draws
-     injected; the teacher's construction and update at bench.py's
-     N = 8192 (B4's backward in row chunks) with its peak device memory;
+     injected; one whole PAIRED cycle of bench.py's workload (N = 8192,
+     T = 256; B4's backward in row chunks) with its phase split, launch
+     counts and peak device memory, which must stay under half the card;
      then each kernel's time at the main path's shapes beside
      its plain twin's and its bound;
   4. slices, each with every kernel's launch count read around it: two
@@ -68,6 +76,14 @@ PAIRED_ARGS = [
 BENCH_ENV_ARGS = PAIRED_ARGS + [
     '--env_name', 'MultiGrid-Adversarial-v0', '--num_env_steps',
     str(32 * 256)]
+# bench.py's workload (bench.py:47-69): one PAIRED cycle at N = 8192.
+BENCH_SIZE_N = 8192
+BENCH_SIZE_ARGS = [
+    '--env_name', 'MultiGrid-Adversarial-v0', '--ued_algo', 'paired',
+    '--num_processes', str(BENCH_SIZE_N), '--num_steps', '256',
+    '--ppo_epoch', '5', '--num_mini_batch', '1',
+    '--recurrent_adversary_env', 'true', '--seed', '1',
+]
 ADVERSARY_ENVS = ('MultiGrid-GoalLastFewerBlocksAdversarial-v0',
                   'MultiGrid-Adversarial-v0',
                   'MultiGrid-GoalLastVariableBlocksAdversarialEnv-v0',
@@ -510,54 +526,194 @@ def check_paired_cycle_against_cpu(device) -> dict:
     return res
 
 
-def check_teacher_update_at_bench_size(device) -> dict:
-    """The teacher's construction and PPO update at bench.py's size: N =
-    8192 levels of MultiGrid-Adversarial-v0 (52 moves, LSTM-256, 5
-    epochs), so each epoch's projection takes B = 52 * 8192 = 425 984
-    rows, whose 21 692-wide embed would be 37 GB of fp32.  The backward
-    rebuilds it in row chunks; the phase fails unless the losses are
-    finite and the peak of allocated device memory stays under half the
-    card."""
+def lstm_inputs(T, N, device, seed=0):
+    """Kernel B3's inputs at LSTM-256: W_h of a freshly built core (the
+    bias made random), random zx, carry and cotangents, and masks with
+    resets for half the envs at t = 0 and about one step in twenty."""
     import torch
-    from dcd_isaac_tpu_torch.arguments import parser
+    from dcd_isaac_tpu_torch.models.common import RNNCore
+    core = RNNCore(4, 256, generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)
+    masks = (torch.rand((T, N), generator=g, device=device) > 0.05).float()
+    masks[0, ::2] = 0.0
+    x = dict(zx=rn(T, N, 1024), masks=masks,
+             w_h=core.w_h.weight.detach().to(device), b=rn(1024) * 0.1,
+             c0=rn(N, 256), h0=rn(N, 256))
+    return x, (rn(T, N, 256), rn(N, 256))
+
+
+def check_lstm_seq(T, N, device) -> dict:
+    """Kernel B3 forward and backward against the plain twins: outputs
+    within 1e-5, gradients within atol + rtol * |ref| = 1e-4 + 1e-4 * |ref|
+    (each z sums 256 products, dW_h T * N * 256, in another order than
+    cuBLAS)."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels.lstm_seq import (
+        lstm_seq, lstm_seq_plain_backward, lstm_seq_plain_forward,
+    )
+    x, (g_h, g_c) = lstm_inputs(T, N, device)
+    leaves = {k: v.clone().requires_grad_(k != 'masks') for k, v in x.items()}
+    h_all, (c_T, _) = lstm_seq(*leaves.values())
+    names = ('zx', 'w_h', 'b', 'c0', 'h0')
+    grads = torch.autograd.grad((h_all, c_T), [leaves[k] for k in names],
+                                (g_h, g_c))
+    with torch.no_grad():
+        want_h, want_c, (want_cT, _) = lstm_seq_plain_forward(**x)
+        want_grads = lstm_seq_plain_backward(g_h, g_c, *x.values(), want_h,
+                                             want_c)
+    h_all, c_T = h_all.detach(), c_T.detach()
+    torch.testing.assert_close(h_all, want_h, atol=1e-5, rtol=0)
+    torch.testing.assert_close(c_T, want_cT, atol=1e-5, rtol=0)
+    for k, a, b in zip(names, grads, want_grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m: f'grad {k}: {m}')
+    return {'T': T, 'N': N,
+            'max_abs_err': max(float((h_all - want_h).abs().max()),
+                               float((c_T - want_cT).abs().max())),
+            'grad_max_abs_err': {k: float((a - b).abs().max()) for k, a, b
+                                 in zip(names, grads, want_grads)},
+            'grad_max_abs': {k: float(b.abs().max())
+                             for k, b in zip(names, want_grads)}}
+
+
+def ppo_inputs(R, device, A=7, seed=0):
+    """Kernel B7's rows: random logits (R, A) and values; a quarter of the
+    rows with the ratio exactly 1 and the values equal to the old values
+    (the first minibatch's ties).  A = 7 for the students, 169 for the
+    teacher's placements."""
+    import torch
+    from dcd_isaac_tpu_torch.models.distributions import categorical_log_prob
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)
+    logits, values = rn(R, A), rn(R)
+    actions = torch.randint(0, A, (R,), generator=g, device=device)
+    tie = torch.rand((R,), generator=g, device=device) < 0.25
+    old_lp = torch.where(tie, categorical_log_prob(logits, actions),
+                         rn(R) * 0.3 - 2.0)
+    old_v = torch.where(tie, values, values + rn(R) * 0.3)
+    return (logits, values, actions, old_lp, old_v, values + rn(R), rn(R))
+
+
+def check_ppo_loss(R, A, clip_value_loss, device) -> dict:
+    """Kernel B7 against its twins: the four means within 1e-6 relative of
+    the twin in float64; dlogits and dvalues within 1e-5 of the largest
+    entry of the twin's backward plus 1e-5 relative (the loss is a mean, so
+    every entry scales as 1/R: a fixed atol would pass a backward that
+    writes zeros at the main path's R); both bit-identical over two runs;
+    the advantage normalisation within 1e-6 of the twin in float64."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels.ppo_loss import (
+        normalize_advantages, normalize_advantages_plain, ppo_loss,
+        ppo_loss_plain, ppo_loss_plain_backward,
+    )
+    rows = ppo_inputs(R, device, A)
+    cfg = (0.2, clip_value_loss, 0.5, 0.01)
+    upstream = torch.tensor([1.0, 0.0, 0.0, 0.0], device=device)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in rows[:2]]
+        out = ppo_loss(*leaves, *rows[2:], *cfg)
+        runs.append((torch.stack(out).detach(),
+                     *torch.autograd.grad(out[0], leaves)))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    if not same:
+        raise AssertionError(f'ppo_loss R={R}: two runs differ')
+    wide = [t.double() if t.is_floating_point() else t for t in rows]
+    want = torch.stack(ppo_loss_plain(*wide, *cfg))
+    torch.testing.assert_close(runs[0][0].double(), want, rtol=1e-6,
+                               atol=1e-9)
+    want_grads = ppo_loss_plain_backward(upstream, *rows, *cfg)
+    grads = {}
+    for name, a, b in zip(('dlogits', 'dvalues'), runs[0][1:], want_grads):
+        scale = float(b.abs().max())
+        if not scale > 0:
+            raise AssertionError(f'ppo_loss R={R}: {name} of the twin is 0')
+        torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=1e-5,
+                                   msg=lambda m: f'{name}: {m}')
+        err = float((a - b).abs().max())
+        grads[name] = {'max_abs_err': err, 'max_abs_ref': scale,
+                       'max_err_over_ref': err / scale}
+    ret, val = rows[5], rows[1]
+    adv = normalize_advantages(ret, val)
+    want_adv = normalize_advantages_plain(ret.double(), val.double())
+    torch.testing.assert_close(adv.double(), want_adv, atol=1e-6, rtol=1e-6)
+    return {'R': R, 'A': A, 'clip_value_loss': clip_value_loss,
+            'means': runs[0][0].tolist(),
+            'max_rel_err_means': float(((runs[0][0].double() - want).abs()
+                                        / want.abs()).max()),
+            'max_abs_err': max(g['max_abs_err'] for g in grads.values()),
+            'grads': grads,
+            'normalize_max_abs_err': float((adv.double() - want_adv).abs()
+                                           .max()),
+            'bit_identical_runs': same}
+
+
+def check_paired_cycle_at_bench_size(device) -> dict:
+    """One whole PAIRED cycle of bench.py's workload (N = 8192, T = 256,
+    MultiGrid-Adversarial-v0, 5 epochs, 1 minibatch, recurrent teacher,
+    no time-limit bootstrapping) through the runner's cycle, with a device
+    sync around each phase: the teacher's build, each student's rollout
+    (with its GAE) and update, the teacher's update.  Fails unless every
+    stat is finite and the peak of allocated device memory stays under
+    half the card."""
+    import torch
+    from dcd_isaac_tpu_torch.arguments import check_args, parser
     from dcd_isaac_tpu_torch.envs.registry import make_env
-    from dcd_isaac_tpu_torch.kernels.teacher_proj import teacher_proj
     from dcd_isaac_tpu_torch.runner.adversarial_runner import (
         AdversarialRunner,
     )
     from dcd_isaac_tpu_torch.utils.make_agent import make_all_models
-    n = 8192
-    args = parser.parse_args(PAIRED_ARGS + [
-        '--env_name', 'MultiGrid-Adversarial-v0', '--num_processes', str(n)])
+    args = check_args(parser.parse_args(BENCH_SIZE_ARGS))
     env = make_env(args.env_name)
     models = {r: m.to(device) for r, m in make_all_models(
-        args, env, torch.Generator().manual_seed(3)).items()}
+        args, env, torch.Generator().manual_seed(args.seed)).items()}
     runner = AdversarialRunner(args, env, models, device)
+    seconds = {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    runner._generate_levels = timed('teacher_build', runner._generate_levels)
+    runner._teacher_update = timed('teacher_update', runner._teacher_update)
+    for role in ('agent', 'adversary_agent'):
+        runner.updates[role] = timed(f'{role}_update', runner.updates[role])
+    phase = runner._student_phase
+
+    def student_phase(role, *a, **k):
+        return timed(f'{role}_phase', phase)(role, *a, **k)
+    runner._student_phase = student_phase
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    launches = teacher_proj.launches
     t0 = time.perf_counter()
-    _, t_rollout, t_next_value = runner._generate_levels()
+    stats = runner.run()
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    env_ret = torch.rand(n, generator=runner.generators['adversary_env'],
-                         device=device)
-    stats = runner._teacher_update(t_rollout, t_next_value, env_ret)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    total = time.perf_counter() - t0
+    for role in ('agent', 'adversary_agent'):
+        seconds[f'{role}_rollout'] = (seconds.pop(f'{role}_phase')
+                                      - seconds[f'{role}_update'])
     peak = torch.cuda.max_memory_allocated(device)
-    total = torch.cuda.get_device_properties(device).total_memory
-    stats = {k: float(v) for k, v in stats.items()}
-    bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
-    if bad or peak > total / 2:
-        raise AssertionError(f'teacher update at N={n}: non-finite {bad}, '
-                             f'peak {peak / 2**30:.2f} GiB of '
-                             f'{total / 2**30:.2f} GiB')
-    return {'n': n, 'update_rows': env.adversary_rollout_steps * n,
-            'generate_seconds': t1 - t0, 'update_seconds': t2 - t1,
+    card = torch.cuda.get_device_properties(device).total_memory
+    bad = {k: v for k, v in stats.items() if not math.isfinite(float(v))}
+    if bad or peak > card / 2:
+        raise AssertionError(f'PAIRED cycle at N={args.num_processes}: '
+                             f'non-finite {bad}, peak {peak / 2**30:.2f} GiB '
+                             f'of {card / 2**30:.2f} GiB')
+    return {'n': args.num_processes, 'T': args.num_steps,
+            'seconds': seconds, 'total_seconds': total,
+            'steps_per_second': args.num_processes * args.num_steps / total,
             'peak_allocated_gib': peak / 2**30,
-            'teacher_proj_launches': teacher_proj.launches - launches,
-            'stats': stats}
+            'card_gib': card / 2**30, 'stats': stats}
 
 
 def view_cells_read(grid, agent_pos, agent_dir, v: int) -> int:
@@ -706,6 +862,87 @@ def time_teacher_kernels(device) -> dict:
     return out
 
 
+def time_training_kernels(device) -> dict:
+    """Kernels B3 and B7 on the update path, with their plain twins and
+    bounds: B3's forward pass and its backward pass (the recompute and dh
+    kernels plus the dW_h matmul) at T = 256, H = 256 for N = 32 (the
+    slices) and N = 8192 (bench.py); B7's forward and backward at R = T * N
+    rows for the same two N, and the advantage normalisation."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels import lstm_seq as ls
+    from dcd_isaac_tpu_torch.kernels import ppo_loss as pl
+    out = {'lstm_seq': {}, 'ppo_loss': {}}
+    H = 256
+    for n, inner, samples in ((MAIN_N, 3, 15), (BENCH_SIZE_N, 1, 3)):
+        x, (g_h, g_c) = lstm_inputs(MAIN_T, n, device)
+        args = tuple(x.values())
+        tnh = MAIN_T * n * H
+        with torch.no_grad():
+            h_all, c_all = ls._launch_forward(*args)
+            bwd_args = (g_h, g_c, *args, h_all, c_all)
+            # the forward reads zx and writes c and h; the backward reads zx,
+            # c, h and dh, writes dzx; each product 2 * T * N * H * 4H
+            fwd = bound(4 * (4 * tnh + 2 * tnh), 2 * tnh * 4 * H + 30 * tnh)
+            bwd = bound(4 * (4 * tnh + 3 * tnh + 4 * tnh),
+                        3 * 2 * tnh * 4 * H + 40 * tnh)
+            suffix = '' if n == MAIN_N else f'_n{n}'
+            out['lstm_seq'].update({
+                f'ms{suffix}': graph_ms(lambda: ls._launch_forward(*args),
+                                        inner, samples),
+                f'plain_ms{suffix}': device_ms(
+                    lambda: ls.lstm_seq_plain_forward(*args), 1, samples),
+                f'bound_ms{suffix}': fwd[0], f'bound_by{suffix}': fwd[1],
+                f'ms_backward{suffix}': graph_ms(
+                    lambda: ls._launch_backward(*bwd_args), inner, samples),
+                f'plain_ms_backward{suffix}': device_ms(
+                    lambda: ls.lstm_seq_plain_backward(*bwd_args), 1,
+                    samples),
+                f'bound_ms_backward{suffix}': bwd[0],
+                f'bound_by_backward{suffix}': bwd[1]})
+        del x, args, h_all, c_all, bwd_args, g_h, g_c
+        torch.cuda.empty_cache()
+
+    # B7 at the students' R = T * N (7 actions) and the teacher's update at
+    # bench.py's size (52 moves x 8192 levels, 169 placements)
+    for R, A in ((MAIN_T * MAIN_N, 7), (MAIN_T * BENCH_SIZE_N, 7),
+                 (52 * BENCH_SIZE_N, 169)):
+        samples = 15 if R == MAIN_T * MAIN_N else 5
+        rows = ppo_inputs(R, device, A)
+        cfg = (0.2, True, 0.5, 0.0)
+        upstream = torch.tensor([1.0, 0.0, 0.0, 0.0], device=device)
+        # A logits, 5 floats and an int64 action read a row; dlogits and
+        # dvalues written by the backward; ~10 operations a logit
+        fwd = bound(R * (A * 4 + 5 * 4 + 8), (10 * A + 30) * R)
+        bwd = bound(R * (2 * A * 4 + 6 * 4 + 8), (14 * A + 40) * R)
+        norm = bound(R * 3 * 4, 6 * R)
+        suffix = ('' if R == MAIN_T * MAIN_N else
+                  f'_r{R}' if A == 7 else f'_r{R}_a{A}')
+        out['ppo_loss'].update({
+            f'ms{suffix}': graph_ms(lambda: pl._launch_forward(*rows, *cfg),
+                                    20, samples),
+            f'plain_ms{suffix}': device_ms(
+                lambda: pl.ppo_loss_plain(*rows, *cfg), 1, samples),
+            f'bound_ms{suffix}': fwd[0], f'bound_by{suffix}': fwd[1],
+            f'ms_backward{suffix}': graph_ms(
+                lambda: pl._launch_backward(upstream, *rows, *cfg), 20,
+                samples),
+            f'plain_ms_backward{suffix}': device_ms(
+                lambda: pl.ppo_loss_plain_backward(upstream, *rows, *cfg), 1,
+                samples),
+            f'bound_ms_backward{suffix}': bwd[0],
+            f'bound_by_backward{suffix}': bwd[1],
+            f'ms_normalize{suffix}': graph_ms(
+                lambda: pl.normalize_advantages(rows[5], rows[1]), 20,
+                samples),
+            f'plain_ms_normalize{suffix}': device_ms(
+                lambda: pl.normalize_advantages_plain(rows[5], rows[1]), 1,
+                samples),
+            f'bound_ms_normalize{suffix}': norm[0]})
+        del rows
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -740,7 +977,14 @@ def main() -> int:
     checks = {'multigrid': [check_multigrid(n, 300, device)
                             for n in (MAIN_N, 4096)],
               'gae': [check_gae(MAIN_T, n, proper, device)
-                      for n in (MAIN_N, 4096) for proper in (True, False)]}
+                      for n in (MAIN_N, 4096) for proper in (True, False)],
+              'lstm_seq': [check_lstm_seq(t, n, device)
+                           for t, n in ((MAIN_T, MAIN_N), (52, 1024))],
+              'ppo_loss': [check_ppo_loss(r, a, cv, device)
+                           for r, a, cv in ((MAIN_T * MAIN_N, 7, True),
+                                            (MAIN_T * MAIN_N, 7, False),
+                                            (MAIN_T * BENCH_SIZE_N, 7, True),
+                                            (52 * 1024, 169, True))]}
     torch.cuda.synchronize()
     log('kernels_vs_plain', t0, **checks)
     t0 = time.perf_counter()
@@ -764,31 +1008,77 @@ def main() -> int:
     log('cycle_vs_cpu', t0, **check_cycle_against_cpu(device))
     t0 = time.perf_counter()
     log('paired_cycle_vs_cpu', t0, **check_paired_cycle_against_cpu(device))
-    t0 = time.perf_counter()
-    log('teacher_update_bench_size', t0,
-        **check_teacher_update_at_bench_size(device))
-    t0 = time.perf_counter()
-    times = time_kernels(device)
-    times.update(time_teacher_kernels(device))
-    log('kernel_times', t0, **times)
 
-    # -- 4. the slices ------------------------------------------------------
     from dcd_isaac_tpu_torch import train
     from dcd_isaac_tpu_torch.kernels import multigrid_adversary
+    from dcd_isaac_tpu_torch.kernels.lstm_seq import lstm_seq
+    from dcd_isaac_tpu_torch.kernels.ppo_loss import (
+        normalize_advantages, ppo_loss,
+    )
     from dcd_isaac_tpu_torch.kernels.teacher_proj import teacher_proj
     wrappers = {'multigrid_step': multigrid_step,
                 'multigrid_obs': multigrid_obs, 'gae': gae,
                 'multigrid_adversary_step': multigrid_adversary.step,
                 'multigrid_shortest_path': multigrid_adversary.shortest_path,
-                'teacher_proj': teacher_proj}
+                'teacher_proj': teacher_proj, 'lstm_seq': lstm_seq,
+                'ppo_loss': ppo_loss,
+                'normalize_advantages': normalize_advantages}
 
-    def run_slice(phase, argv, cycles, need_per_cycle):
-        t0 = time.perf_counter()
+    def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+            if hasattr(w, 'backward_launches'):
+                w.backward_launches = 0
+
+    def read_counts():
+        counts = {k: w.launches for k, w in wrappers.items()}
+        counts.update({f'{k}_backward': w.backward_launches
+                       for k, w in wrappers.items()
+                       if hasattr(w, 'backward_launches')})
+        return counts
+
+    def check_counts(phase, launches, need):
+        short = {k: (launches[k], v) for k, v in need.items()
+                 if launches[k] < v}
+        if short:
+            raise AssertionError(f'{phase}: launches short={short}')
+
+    # B3 and B7 in one cycle: a forward and a backward pass in each of 5
+    # epochs of 1 minibatch for each net (the student of DR; the two
+    # students and the teacher of PAIRED), the nets' sequences `steps` long.
+    # B3 launches T step kernels forward and T + 1 backward; B7 two kernels
+    # forward and one backward; the normalisation two once an update.
+    def update_launches(steps):
+        return {'lstm_seq': sum(5 * (2 * t + 1) for t in steps),
+                'lstm_seq_backward': sum(5 * (t + 1) for t in steps),
+                'ppo_loss': 15 * len(steps),
+                'ppo_loss_backward': 5 * len(steps),
+                'normalize_advantages': 2 * len(steps)}
+
+    t0 = time.perf_counter()
+    reset_counts()
+    bench_cycle = check_paired_cycle_at_bench_size(device)
+    torch.cuda.synchronize()
+    bench_launches = read_counts()
+    check_counts('paired_cycle_bench_size', bench_launches, {
+        'multigrid_adversary_step': 52, 'teacher_proj': 52 + 1 + 5,
+        'multigrid_step': 2 * MAIN_T, 'multigrid_obs': 2, 'gae': 3,
+        **update_launches((MAIN_T, MAIN_T, 52))})
+    log('paired_cycle_bench_size', t0, launches=bench_launches,
+        **bench_cycle)
+    t0 = time.perf_counter()
+    times = time_kernels(device)
+    times.update(time_teacher_kernels(device))
+    times.update(time_training_kernels(device))
+    log('kernel_times', t0, **times)
+
+    # -- 4. the slices ------------------------------------------------------
+    def run_slice(phase, argv, cycles, need_per_cycle):
+        t0 = time.perf_counter()
+        reset_counts()
         _, history = train.main(argv)
         torch.cuda.synchronize()
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = read_counts()
         for stats in history:
             bad = {k: v for k, v in stats.items()
                    if not math.isfinite(float(v))}
@@ -809,14 +1099,17 @@ def main() -> int:
     by_path = {
         'dr': run_slice('slice', SLICE_ARGS, 2, {
             'multigrid_step': MAIN_T, 'multigrid_obs': 1, 'gae': 1,
-            'multigrid_shortest_path': 1}),
+            'multigrid_shortest_path': 1, **update_launches((MAIN_T,))}),
         'paired': run_slice('paired_slice', PAIRED_ARGS, 2, {
             'multigrid_adversary_step': 27, 'teacher_proj': 27 + 1 + 5,
-            'multigrid_step': 2 * MAIN_T, 'multigrid_obs': 2, 'gae': 3}),
+            'multigrid_step': 2 * MAIN_T, 'multigrid_obs': 2, 'gae': 3,
+            **update_launches((MAIN_T, MAIN_T, 27))}),
     }
     run_slice('bench_env_slice', BENCH_ENV_ARGS, 1, {
         'multigrid_adversary_step': 52, 'teacher_proj': 52 + 1 + 5,
-        'multigrid_step': 2 * MAIN_T, 'gae': 3})
+        'multigrid_step': 2 * MAIN_T, 'gae': 3,
+        **update_launches((MAIN_T, MAIN_T, 52))})
+    by_path['paired_bench_size'] = bench_launches
 
     # -- 5. kernels line and result ----------------------------------------
     mg_err = max(c['max_abs_err'] for c in checks['multigrid'])
@@ -824,7 +1117,12 @@ def main() -> int:
             'gae': max(c['max_abs_err'] for c in checks['gae']),
             'multigrid_adversary_step': max(c['max_abs_err'] for c in adv),
             'multigrid_shortest_path': bfs['max_abs_err'],
-            'teacher_proj': max(c['max_abs_err'] for c in proj)}
+            'teacher_proj': max(c['max_abs_err'] for c in proj),
+            'lstm_seq': max(c['max_abs_err'] for c in checks['lstm_seq']),
+            'ppo_loss': max(c['max_abs_err'] for c in checks['ppo_loss'])}
+    grad_errs = {'ppo_loss': {'grad_errors': [
+        {'R': c['R'], 'A': c['A'], **c['grads']}
+        for c in checks['ppo_loss']]}}
     times['teacher_proj'] = times.pop(f'teacher_proj_b{MAIN_N}')
     big = times.pop(f'teacher_proj_b{27 * MAIN_N}')
     times['teacher_proj'].update({f'{k}_b{27 * MAIN_N}': v
@@ -846,13 +1144,24 @@ def main() -> int:
             'dcd_isaac_tpu/envs/multigrid/core.py:369'),
         'teacher_proj': ('dcd_isaac_tpu_torch/csrc/teacher_proj.cu',
                          'dcd_isaac_tpu/models/multigrid_models.py:120'),
+        'lstm_seq': ('dcd_isaac_tpu_torch/csrc/lstm_seq.cu',
+                     'dcd_isaac_tpu/models/common.py:125'),
+        'ppo_loss': ('dcd_isaac_tpu_torch/csrc/ppo_loss.cu',
+                     'dcd_isaac_tpu/algos/ppo.py:82'),
     }
+    # `launches` counts kernel launches, forward and backward (see
+    # update_launches); B7's entry also carries the advantage
+    # normalisation's launches and its gradients' error beside their scale.
+    extra = {'lstm_seq': ('lstm_seq_backward',),
+             'ppo_loss': ('ppo_loss_backward', 'normalize_advantages')}
     kernels = [{'name': name, 'route': 'cuda', 'source': src,
                 'replaces': rep,
                 'launches': sum(c[name] for c in by_path.values()),
                 'launches_by_path': {k: c[name] for k, c in by_path.items()},
+                **{f'launches_{e}': sum(c[e] for c in by_path.values())
+                   for e in extra.get(name, ())},
                 'max_abs_err': errs[name], **times[name],
-                'library_ms': None}
+                **grad_errs.get(name, {}), 'library_ms': None}
                for name, (src, rep) in meta.items()]
     log('total', t_all)
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -6,6 +6,9 @@ parameters the previous one produced.  Recurrent minibatches group whole
 envs and replay the BPTT chunk through the model's ``sequence``.  The
 model's parameters and the optimizer's moments are updated in place.
 
+The loss after the model's forward and the advantage normalisation are
+kernel B7 (``kernels/ppo_loss.py``); the model's BPTT runs kernel B3.
+
 The optimizer is optax's ``chain(clip_by_global_norm, adam)`` written out:
 PyTorch's ``clip_grad_norm_`` divides by ``norm + 1e-6`` and its Adam puts
 ``eps`` after a differently ordered bias correction, so neither matches
@@ -19,7 +22,7 @@ from typing import List, Optional
 
 import torch
 
-from ..models.distributions import categorical_entropy, categorical_log_prob
+from ..kernels.ppo_loss import normalize_advantages, ppo_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,34 +93,15 @@ def init_agent_state(model: torch.nn.Module, cfg: PPOConfig
     return AgentTrainState(model, make_optimizer(model.parameters(), cfg))
 
 
-def smooth_l1(pred, target):
-    d = (pred - target).abs()
-    return torch.where(d < 1.0, 0.5 * d ** 2, d - 0.5)
-
-
 def loss_fn(model, cfg: PPOConfig, obs, init_carry, masks_pre, actions,
             old_log_probs, old_values, returns, advs):
     """Clipped-surrogate PPO loss (ppo.py:82-114) → (loss, (vloss, aloss,
-    entropy))."""
+    entropy)): the model's BPTT forward, then kernel B7."""
     logits, values, _ = model.sequence(obs, init_carry, masks_pre)
-    new_log_probs = categorical_log_prob(logits, actions)
-    entropy = categorical_entropy(logits).mean()
-
-    ratio = torch.exp(new_log_probs - old_log_probs)
-    surr1 = ratio * advs
-    surr2 = ratio.clamp(1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * advs
-    action_loss = -torch.minimum(surr1, surr2).mean()
-
-    if cfg.clip_value_loss:
-        clipped = old_values + (values - old_values).clamp(
-            -cfg.clip_param, cfg.clip_param)
-        vloss = 0.5 * torch.maximum((values - returns) ** 2,
-                                    (clipped - returns) ** 2).mean()
-    else:
-        vloss = smooth_l1(values, returns).mean()
-
-    loss = (vloss * cfg.value_loss_coef + action_loss
-            - entropy * cfg.entropy_coef)
+    loss, vloss, action_loss, entropy = ppo_loss(
+        logits, values, actions, old_log_probs, old_values, returns, advs,
+        cfg.clip_param, cfg.clip_value_loss, cfg.value_loss_coef,
+        cfg.entropy_coef)
     return loss, (vloss, action_loss, entropy)
 
 
@@ -141,9 +125,7 @@ def make_ppo_update(model, cfg: PPOConfig, num_actors: int):
                generator: torch.Generator = None, discard_grad: bool = False,
                perms: torch.Tensor = None):
         old_values = rollout.values
-        advantages = returns - old_values
-        advantages = (advantages - advantages.mean()) / (
-            advantages.std(correction=0) + 1e-5)
+        advantages = normalize_advantages(returns, old_values)
         N = returns.shape[1]
         if perms is None:
             perms = torch.stack([

@@ -4,8 +4,11 @@ A copy of the JAX package's parser (dcd_isaac_tpu/arguments.py), which
 mirrors the reference's flags one for one (same names, same defaults) so the
 grid configs in train_scripts/grid_configs/*.json drive the port unchanged.
 The JAX package's XLA/TPU-only knobs are not copied; the port refuses
-``--bf16 true`` (this slice is fp32).  ``--no_cuda true`` asks for the CPU;
-otherwise the entry points run on the card.
+``--bf16 true`` (it is fp32) and, until the entry-points slice, the
+logging settings it would otherwise ignore: ``--log_action_complexity
+true``, ``--checkpoint true`` and ``--archive_interval`` > 0.
+``--no_cuda true`` asks for the CPU; otherwise the entry points run on the
+card.
 """
 
 import argparse
@@ -159,4 +162,15 @@ def check_args(args: argparse.Namespace) -> argparse.Namespace:
     if args.bf16:
         raise ValueError(
             '--bf16 true is not supported: the PyTorch port runs fp32 only')
+    waits = 'it waits for the entry-points slice (ROADMAP queue A.4)'
+    if args.log_action_complexity:
+        raise NotImplementedError(
+            f'--log_action_complexity true is not ported yet: {waits}')
+    if args.checkpoint:
+        raise NotImplementedError(
+            f'--checkpoint true is not ported yet: {waits}')
+    if args.archive_interval > 0:
+        raise NotImplementedError(
+            f'--archive_interval {args.archive_interval} is not ported yet '
+            f'(checkpoint archives): {waits}')
     return args

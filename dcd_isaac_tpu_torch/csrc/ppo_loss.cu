@@ -1,0 +1,324 @@
+// The PPO loss over a minibatch's rows, its gradient, and the advantage
+// normalisation.
+//
+// Replaces dcd_isaac_tpu/algos/ppo.py:loss_fn (:82-114) after the model's
+// forward, and the advantage normalisation of update (:142-144).  Per row
+// r of R = T * N, with A action logits:
+//   logp = log_softmax(logits[r]),  entropy_r = -sum exp(logp) * logp
+//   ratio = exp(logp[action] - old_log_prob)
+//   a_r = min(ratio * adv, clamp(ratio, 1 - clip, 1 + clip) * adv)
+//   v_r = max((v - ret)^2, (old_v + clamp(v - old_v, -clip, clip) - ret)^2)
+//         (clip_value_loss), or smooth_l1(v - ret)
+//   aloss = -mean(a_r), vloss = 0.5 * mean(v_r) (clipped) or mean(v_r),
+//   entropy = mean(entropy_r),
+//   loss = vloss * value_loss_coef + aloss - entropy * entropy_coef.
+//
+// lo and hi are the ratio's clip bounds 1 -/+ clip, rounded once by the
+// caller as PyTorch rounds its scalar bounds.
+//
+// Forward: one thread a row; each CTA sums its rows' three terms in double
+// in a fixed tree and writes one partial per term; a second kernel of one
+// CTA sums the partials in a fixed order and writes the four means.  No
+// atomics, and the CTA count depends on R alone, so two runs give the same
+// bits.  Backward: one pass, one thread a row, recomputing the row's terms
+// and writing dlogits (R, A) and dvalues (R,) from the four upstream
+// gradients, with autograd's tie and boundary rules for min, max and
+// clamp (a tie sends half to each side; clamp passes its bounds).
+// Normalisation: per-CTA double sums of x = ret - v and x^2, then a kernel
+// in which every CTA folds the same partials in the same order and writes
+// (x - mean) / (std + 1e-5) with the population std.
+//
+// Bound on the H100, by bytes: at R = 2 097 152 and A = 7 the forward reads
+// about 117 MB (35 us at 3.35 TB/s), the backward reads that and writes
+// dlogits and dvalues (about 185 MB, 55 us).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 512;   // partial sums of a reduction
+
+int reduce_blocks(int R) {
+  const int b = (R + kThreads - 1) / kThreads;
+  return b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b);
+}
+
+// Sums v over the CTA in a fixed tree; the result is valid in thread 0.
+template <int kTerms>
+__device__ void block_sum(double (&v)[kTerms], double (*buf)[kThreads]) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < kTerms; ++k) buf[k][tid] = v[k];
+  __syncthreads();
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+#pragma unroll
+      for (int k = 0; k < kTerms; ++k) buf[k][tid] += buf[k][tid + s];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < kTerms; ++k) v[k] = buf[k][0];
+}
+
+// Sums the n partials [j * kTerms + k] in a fixed order: thread i takes
+// j = i, i + kThreads, ..., then the tree.
+template <int kTerms>
+__device__ void fold_partials(const double* __restrict__ partials, int n,
+                              double (&v)[kTerms], double (*buf)[kThreads]) {
+#pragma unroll
+  for (int k = 0; k < kTerms; ++k) v[k] = 0.0;
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+#pragma unroll
+    for (int k = 0; k < kTerms; ++k) v[k] += partials[j * kTerms + k];
+  }
+  block_sum<kTerms>(v, buf);
+}
+
+struct Row {
+  float mx, lse;                   // logp_j = (logits_j - mx) - lse
+  float entropy, ratio, surr1, surr2;
+};
+
+// The row's log-softmax (as PyTorch: x - max - log(sum(exp(x - max)))),
+// entropy, ratio and surrogates.  A is any width (7 for the students, 169
+// for the teacher's 13 x 13 placements): the logits are read again rather
+// than held.
+__device__ __forceinline__ void row_terms(const float* __restrict__ logits,
+                                          int64_t action, float old_lp,
+                                          float adv, int A, float lo, float hi,
+                                          Row& row) {
+  float mx = logits[0];
+  for (int j = 1; j < A; ++j) mx = fmaxf(mx, logits[j]);
+  float s = 0.0f;
+  for (int j = 0; j < A; ++j) s += expf(logits[j] - mx);
+  const float lse = logf(s);
+  float ent = 0.0f;
+  for (int j = 0; j < A; ++j) {
+    const float lp = (logits[j] - mx) - lse;
+    ent -= expf(lp) * lp;
+  }
+  row.mx = mx;
+  row.lse = lse;
+  row.entropy = ent;
+  row.ratio = expf(((logits[action] - mx) - lse) - old_lp);
+  row.surr1 = row.ratio * adv;
+  row.surr2 = fminf(fmaxf(row.ratio, lo), hi) * adv;
+}
+
+__global__ void __launch_bounds__(kThreads) ppo_loss_rows_kernel(
+    const float* __restrict__ logits, const float* __restrict__ values,
+    const int64_t* __restrict__ actions, const float* __restrict__ old_lp,
+    const float* __restrict__ old_v, const float* __restrict__ returns,
+    const float* __restrict__ advs, double* __restrict__ partials, int R,
+    int A, float clip, float lo, float hi, int clip_value_loss) {
+  __shared__ double buf[3][kThreads];
+  double sum[3] = {0.0, 0.0, 0.0};   // min(surr1, surr2), value term, entropy
+  for (int r = blockIdx.x * kThreads + threadIdx.x; r < R;
+       r += gridDim.x * kThreads) {
+    Row row;
+    row_terms(logits + (size_t)r * A, actions[r], old_lp[r], advs[r], A, lo,
+              hi, row);
+    const float v = values[r], ret = returns[r];
+    float vterm;
+    if (clip_value_loss) {
+      const float clipped = old_v[r] + fminf(fmaxf(v - old_v[r], -clip), clip);
+      const float d1 = v - ret, d2 = clipped - ret;
+      vterm = fmaxf(d1 * d1, d2 * d2);
+    } else {
+      const float d = fabsf(v - ret);
+      vterm = d < 1.0f ? 0.5f * d * d : d - 0.5f;
+    }
+    sum[0] += (double)fminf(row.surr1, row.surr2);
+    sum[1] += (double)vterm;
+    sum[2] += (double)row.entropy;
+  }
+  block_sum<3>(sum, buf);
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 3; ++k) partials[blockIdx.x * 3 + k] = sum[k];
+  }
+}
+
+// out = (loss, vloss, aloss, entropy).
+__global__ void __launch_bounds__(kThreads) ppo_loss_final_kernel(
+    const double* __restrict__ partials, int n, float* __restrict__ out,
+    int R, int clip_value_loss, float value_loss_coef, float entropy_coef) {
+  __shared__ double buf[3][kThreads];
+  double sum[3];
+  fold_partials<3>(partials, n, sum, buf);
+  if (threadIdx.x == 0) {
+    const float aloss = -(float)(sum[0] / R);
+    const float vmean = (float)(sum[1] / R);
+    const float vloss = clip_value_loss ? 0.5f * vmean : vmean;
+    const float entropy = (float)(sum[2] / R);
+    // rounded as PyTorch rounds the scalar expression, without FMAs
+    out[0] = __fsub_rn(__fadd_rn(__fmul_rn(vloss, value_loss_coef), aloss),
+                       __fmul_rn(entropy, entropy_coef));
+    out[1] = vloss;
+    out[2] = aloss;
+    out[3] = entropy;
+  }
+}
+
+// grad_out = upstream gradients of (loss, vloss, aloss, entropy).
+__global__ void __launch_bounds__(kThreads) ppo_loss_backward_kernel(
+    const float* __restrict__ logits, const float* __restrict__ values,
+    const int64_t* __restrict__ actions, const float* __restrict__ old_lp,
+    const float* __restrict__ old_v, const float* __restrict__ returns,
+    const float* __restrict__ advs, const float* __restrict__ grad_out,
+    float* __restrict__ dlogits, float* __restrict__ dvalues, int R, int A,
+    float clip, float lo, float hi, int clip_value_loss,
+    float value_loss_coef, float entropy_coef) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= R) return;
+  const float inv_r = 1.0f / (float)R;
+  const float g_loss = grad_out[0];
+  const float c_v = g_loss * value_loss_coef + grad_out[1];
+  const float c_a = g_loss + grad_out[2];
+  const float c_e = grad_out[3] - g_loss * entropy_coef;
+  const float adv = advs[r];
+  const int64_t action = actions[r];
+  Row row;
+  row_terms(logits + (size_t)r * A, action, old_lp[r], adv, A, lo, hi, row);
+
+  // aloss = -mean(min(surr1, surr2)): a tie sends half to each side.
+  const float w1 = row.surr1 < row.surr2 ? 1.0f
+                   : row.surr1 > row.surr2 ? 0.0f : 0.5f;
+  const bool in_clip = row.ratio >= lo && row.ratio <= hi;
+  const float g_min = -c_a * inv_r;
+  const float g_ratio =
+      g_min * (w1 * adv + (1.0f - w1) * (in_clip ? adv : 0.0f));
+  const float g_lp = g_ratio * row.ratio;
+  const float g_ent = c_e * inv_r;
+  const float* lg = logits + (size_t)r * A;
+  float* dl = dlogits + (size_t)r * A;
+  for (int j = 0; j < A; ++j) {
+    const float lp = (lg[j] - row.mx) - row.lse;
+    const float p = expf(lp);
+    const float onehot = j == action ? 1.0f : 0.0f;
+    dl[j] = g_lp * (onehot - p) - g_ent * (p * (lp + row.entropy));
+  }
+
+  const float v = values[r], ret = returns[r];
+  float dv;
+  if (clip_value_loss) {
+    const float d = v - old_v[r];
+    const float clipped = old_v[r] + fminf(fmaxf(d, -clip), clip);
+    const float d1 = v - ret, d2 = clipped - ret;
+    const float q1 = d1 * d1, q2 = d2 * d2;
+    const float w = q1 > q2 ? 1.0f : q1 < q2 ? 0.0f : 0.5f;
+    const float pass = (d >= -clip && d <= clip) ? 1.0f : 0.0f;
+    const float g = c_v * 0.5f * inv_r;
+    dv = g * (w * 2.0f * d1 + (1.0f - w) * 2.0f * d2 * pass);
+  } else {
+    const float d1 = v - ret;
+    const float d = fabsf(d1);
+    const float sign = d1 > 0.0f ? 1.0f : d1 < 0.0f ? -1.0f : 0.0f;
+    dv = c_v * inv_r * (d < 1.0f ? d : 1.0f) * sign;
+  }
+  dvalues[r] = dv;
+}
+
+// partials[b * 2 + {0, 1}] = sums of x and x^2 over CTA b's rows.
+__global__ void __launch_bounds__(kThreads) adv_moments_kernel(
+    const float* __restrict__ returns, const float* __restrict__ values,
+    double* __restrict__ partials, int R) {
+  __shared__ double buf[2][kThreads];
+  double sum[2] = {0.0, 0.0};
+  for (int r = blockIdx.x * kThreads + threadIdx.x; r < R;
+       r += gridDim.x * kThreads) {
+    const double x = (double)(returns[r] - values[r]);
+    sum[0] += x;
+    sum[1] += x * x;
+  }
+  block_sum<2>(sum, buf);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x * 2] = sum[0];
+    partials[blockIdx.x * 2 + 1] = sum[1];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) adv_normalize_kernel(
+    const float* __restrict__ returns, const float* __restrict__ values,
+    const double* __restrict__ partials, int n, float* __restrict__ out,
+    int R) {
+  __shared__ double buf[2][kThreads];
+  __shared__ float stats[2];
+  double sum[2];
+  fold_partials<2>(partials, n, sum, buf);
+  if (threadIdx.x == 0) {
+    const double mean = sum[0] / R;
+    const double var = sum[1] / R - mean * mean;
+    stats[0] = (float)mean;
+    stats[1] = (float)sqrt(var > 0.0 ? var : 0.0) + 1e-5f;
+  }
+  __syncthreads();
+  const float mean = stats[0], denom = stats[1];
+  for (int r = blockIdx.x * kThreads + threadIdx.x; r < R;
+       r += gridDim.x * kThreads) {
+    out[r] = ((returns[r] - values[r]) - mean) / denom;
+  }
+}
+
+}  // namespace
+
+// Doubles of workspace a call with R rows needs (3 per partial).
+extern "C" int dcd_ppo_loss_workspace(int R) { return 3 * reduce_blocks(R); }
+
+extern "C" int dcd_ppo_loss_forward(
+    const void* logits, const void* values, const void* actions,
+    const void* old_lp, const void* old_v, const void* returns,
+    const void* advs, void* partials, void* out, int R, int A, float clip,
+    float lo, float hi, int clip_value_loss, float value_loss_coef,
+    float entropy_coef, void* stream) {
+  if (R <= 0 || A <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n = reduce_blocks(R);
+  ppo_loss_rows_kernel<<<n, kThreads, 0, s>>>(
+      (const float*)logits, (const float*)values, (const int64_t*)actions,
+      (const float*)old_lp, (const float*)old_v, (const float*)returns,
+      (const float*)advs, (double*)partials, R, A, clip, lo, hi,
+      clip_value_loss);
+  ppo_loss_final_kernel<<<1, kThreads, 0, s>>>(
+      (const double*)partials, n, (float*)out, R, clip_value_loss,
+      value_loss_coef, entropy_coef);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dcd_ppo_loss_backward(
+    const void* logits, const void* values, const void* actions,
+    const void* old_lp, const void* old_v, const void* returns,
+    const void* advs, const void* grad_out, void* dlogits, void* dvalues,
+    int R, int A, float clip, float lo, float hi, int clip_value_loss,
+    float value_loss_coef, float entropy_coef, void* stream) {
+  if (R <= 0 || A <= 0) return (int)cudaErrorInvalidValue;
+  ppo_loss_backward_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const float*)logits, (const float*)values, (const int64_t*)actions,
+      (const float*)old_lp, (const float*)old_v, (const float*)returns,
+      (const float*)advs, (const float*)grad_out, (float*)dlogits,
+      (float*)dvalues, R, A, clip, lo, hi, clip_value_loss, value_loss_coef,
+      entropy_coef);
+  return (int)cudaGetLastError();
+}
+
+// Doubles of workspace for R rows (2 per partial).
+extern "C" int dcd_normalize_advantages_workspace(int R) {
+  return 2 * reduce_blocks(R);
+}
+
+extern "C" int dcd_normalize_advantages(const void* returns,
+                                        const void* values, void* partials,
+                                        void* out, int R, void* stream) {
+  if (R <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n = reduce_blocks(R);
+  adv_moments_kernel<<<n, kThreads, 0, s>>>(
+      (const float*)returns, (const float*)values, (double*)partials, R);
+  adv_normalize_kernel<<<n, kThreads, 0, s>>>(
+      (const float*)returns, (const float*)values, (const double*)partials,
+      n, (float*)out, R);
+  return (int)cudaGetLastError();
+}

@@ -41,6 +41,14 @@ SIGNATURES = {
     'dcd_multigrid_shortest_path': [_P] * 5 + [_I] * 4 + [_P],
     'dcd_teacher_proj': [_P] * 7 + [_I] * 6 + [_P],
     'dcd_teacher_proj_workspace': [_I] * 4,
+    'dcd_lstm_seq_forward': [_P] * 8 + [_I] * 3 + [_P],
+    'dcd_lstm_seq_backward': [_P] * 13 + [_I] * 3 + [_P],
+    'dcd_ppo_loss_workspace': [_I],
+    'dcd_ppo_loss_forward': [_P] * 9 + [_I, _I, _F, _F, _F, _I, _F, _F, _P],
+    'dcd_ppo_loss_backward': [_P] * 10 + [_I, _I, _F, _F, _F, _I, _F, _F,
+                                          _P],
+    'dcd_normalize_advantages_workspace': [_I],
+    'dcd_normalize_advantages': [_P] * 4 + [_I, _P],
 }
 
 

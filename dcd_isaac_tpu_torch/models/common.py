@@ -18,6 +18,8 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from ..kernels.lstm_seq import lstm_seq
+
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
 
@@ -99,10 +101,9 @@ class RNNCore(nn.Module):
         the (T, B) masks → (carry, (T, B, H)) (common.py:sequence_zx).
 
         The caller projects all T steps at once (the projection has no time
-        dependence); the loop carries only the recurrence.
+        dependence).  The recurrence is kernel B3 (``kernels/lstm_seq.py``),
+        whose backward recomputes the gates from the stored carries.
         """
-        outs = []
-        for t in range(zx.shape[0]):
-            carry, h = self._cell(carry, zx[t], masks[t])
-            outs.append(h)
-        return carry, torch.stack(outs)
+        h_all, carry = lstm_seq(zx, masks, self.w_h.weight, self.w_h.bias,
+                                *carry)
+        return carry, h_all

@@ -11,6 +11,7 @@ checkpoints and in-training evaluation come with the entry-points slice.
 from __future__ import annotations
 
 import json
+import sys
 import time
 
 import torch
@@ -25,6 +26,9 @@ from .utils.make_agent import make_all_models
 def main(argv=None):
     """Train; returns ``(runner, per-cycle stats dicts)``."""
     args = check_args(parser.parse_args(argv))
+    print(f'dcd_isaac_tpu_torch.train: no CSV log is written to '
+          f'--log_dir {args.log_dir} yet (ROADMAP queue A.4); the stats go '
+          f'to stdout, one JSON line per cycle', file=sys.stderr)
     device = resolve_device('cpu' if args.no_cuda else None)
     env = make_env(args.env_name)
     init_gen = torch.Generator().manual_seed(args.seed)

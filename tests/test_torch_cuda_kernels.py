@@ -136,3 +136,100 @@ def test_teacher_proj_and_gradients(device, batch):
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
     for a, b in zip(grads, want_grads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('shape', [(256, 32), (52, 1024)])
+def test_lstm_seq_matches_plain(device, shape):
+    """Kernel B3 at LSTM-256 with random mask resets: outputs within 1e-5,
+    gradients within atol + rtol * |ref| = 1e-4 + 1e-4 * |ref| (each z
+    sums 256 products, dW_h T * N * 256, in another order than cuBLAS)."""
+    from dcd_isaac_tpu_torch.kernels.lstm_seq import (
+        lstm_seq, lstm_seq_plain_backward, lstm_seq_plain_forward,
+    )
+    from dcd_isaac_tpu_torch.models.common import RNNCore
+    T, N = shape
+    g = torch.Generator(device=device).manual_seed(T + N)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)
+    masks = (torch.rand((T, N), generator=g, device=device) > 0.05).float()
+    masks[0, ::2] = 0.0
+    core = RNNCore(4, 256, generator=torch.Generator().manual_seed(T))
+    x = dict(zx=rn(T, N, 1024), masks=masks,
+             w_h=core.w_h.weight.detach().to(device), b=rn(1024) * 0.1,
+             c0=rn(N, 256), h0=rn(N, 256))
+    g_h, g_c = rn(T, N, 256), rn(N, 256)
+    leaves = {k: v.clone().requires_grad_(k != 'masks') for k, v in x.items()}
+    before = (lstm_seq.launches, lstm_seq.backward_launches)
+    h_all, (c_T, _) = lstm_seq(*leaves.values())
+    names = ('zx', 'w_h', 'b', 'c0', 'h0')
+    grads = torch.autograd.grad((h_all, c_T), [leaves[k] for k in names],
+                                (g_h, g_c))
+    torch.cuda.synchronize()
+    # T step kernels forward, T + 1 backward (the last gives d(h0))
+    assert (lstm_seq.launches, lstm_seq.backward_launches) == (
+        before[0] + 2 * T + 1, before[1] + T + 1)
+    with torch.no_grad():
+        want_h, want_c, (want_cT, _) = lstm_seq_plain_forward(**x)
+        want_grads = lstm_seq_plain_backward(g_h, g_c, *x.values(), want_h,
+                                             want_c)
+    torch.testing.assert_close(h_all.detach(), want_h, atol=1e-5, rtol=0)
+    torch.testing.assert_close(c_T.detach(), want_cT, atol=1e-5, rtol=0)
+    for a, b in zip(grads, want_grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize('clip_value_loss', [True, False])
+@pytest.mark.parametrize('rows,actions', [(8192, 7), (2097152, 7),
+                                          (425984, 169)])
+def test_ppo_loss_matches_plain_and_repeats(device, rows, actions,
+                                            clip_value_loss):
+    """Kernel B7 at the students' 7 actions and the teacher's 169: the
+    means within 1e-6 relative of the twin in float64; dlogits and dvalues
+    within 1e-5 of the largest entry of the twin's backward plus 1e-5
+    relative (the loss is a mean, so every entry scales as 1/R and a fixed
+    atol would pass a backward that writes zeros); bit-identical over two
+    runs; the advantage normalisation within 1e-6."""
+    from dcd_isaac_tpu_torch.kernels.ppo_loss import (
+        normalize_advantages, normalize_advantages_plain, ppo_loss,
+        ppo_loss_plain, ppo_loss_plain_backward,
+    )
+    from dcd_isaac_tpu_torch.models.distributions import categorical_log_prob
+    R, A = rows, actions
+    g = torch.Generator(device=device).manual_seed(R)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)
+    logits, values = rn(R, A), rn(R)
+    acts = torch.randint(0, A, (R,), generator=g, device=device)
+    tie = torch.rand((R,), generator=g, device=device) < 0.25
+    old_lp = torch.where(tie, categorical_log_prob(logits, acts),
+                         rn(R) * 0.3 - 2.0)
+    old_v = torch.where(tie, values, values + rn(R) * 0.3)
+    data = (logits, values, acts, old_lp, old_v, values + rn(R), rn(R))
+    cfg = (0.2, clip_value_loss, 0.5, 0.01)
+    runs = []
+    before = (ppo_loss.launches, ppo_loss.backward_launches,
+              normalize_advantages.launches)
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in data[:2]]
+        out = ppo_loss(*leaves, *data[2:], *cfg)
+        runs.append((torch.stack(out).detach(),
+                     *torch.autograd.grad(out[0], leaves)))
+    # two kernels a forward pass (rows, then the fold), one a backward
+    assert (ppo_loss.launches, ppo_loss.backward_launches) == (
+        before[0] + 6, before[1] + 2)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    wide = [t.double() if t.is_floating_point() else t for t in data]
+    torch.testing.assert_close(runs[0][0].double(),
+                               torch.stack(ppo_loss_plain(*wide, *cfg)),
+                               rtol=1e-6, atol=1e-9)
+    upstream = torch.tensor([1.0, 0.0, 0.0, 0.0], device=device)
+    for a, b in zip(runs[0][1:],
+                    ppo_loss_plain_backward(upstream, *data, *cfg)):
+        scale = float(b.abs().max())
+        assert scale > 0
+        torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=1e-5)
+    adv = normalize_advantages(data[5], data[1])
+    assert normalize_advantages.launches == before[2] + 2
+    torch.testing.assert_close(
+        adv.double(), normalize_advantages_plain(data[5].double(),
+                                                 data[1].double()),
+        atol=1e-6, rtol=1e-6)

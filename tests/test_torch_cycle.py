@@ -108,8 +108,10 @@ def test_train_entry_point_runs_dr_cycles(capsys):
     runner, history = train.main(
         DR_FLAGS + ['--num_env_steps', str(2 * N * T)])
     assert len(history) == 2 and runner.num_updates == 2
-    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    captured = capsys.readouterr()
+    lines = [json.loads(l) for l in captured.out.splitlines()]
     assert [l['update'] for l in lines] == [1, 2]
+    assert 'no CSV log is written to --log_dir' in captured.err
     for stats in history:
         assert all(np.isfinite(v) for v in stats.values())
         assert stats['num_blocks'] == 12.0 and stats['passable_ratio'] == 1.0
@@ -124,6 +126,9 @@ def test_train_entry_point_runs_dr_cycles(capsys):
      NotImplementedError),
     (['--ued_algo', 'paired', '--recurrent_adversary_env', 'true',
       '--use_plr', 'true'], NotImplementedError),
+    (['--log_action_complexity', 'true'], NotImplementedError),
+    (['--checkpoint', 'true'], NotImplementedError),
+    (['--archive_interval', '1'], NotImplementedError),
 ])
 def test_unported_settings_are_refused(flags, error):
     with pytest.raises(error):
