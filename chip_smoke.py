@@ -5,7 +5,8 @@
 
 Phases, each printing one JSON line with its wall time:
   1. device: the card's name and ``nvidia-smi`` name and power limit;
-  2. build: one ``nvcc`` call for all kernels (kernels/_build.py);
+  2. build: one ``nvcc`` per source, all started together, and one link
+     (kernels/_build.py);
   3. kernels: each kernel against its plain PyTorch twin on the card:
      ``multigrid_step`` / ``multigrid_obs`` bit-exact over 300 steps with
      resets on random DR levels at N = 32 and N = 4096, ``gae`` within
@@ -23,21 +24,31 @@ Phases, each printing one JSON line with its wall time:
      the twin's largest entry plus 1e-5 relative, both bit-identical over
      two runs, with the advantage normalisation;
      the teacher's fused projection (``teacher_proj``) and
-     its gradients within rtol = atol = 1e-4 at B = 32 and 27 * 32; one
-     small DR cycle and one small PAIRED cycle on the card against the
-     same cycles on the CPU (plain twins) with their random draws
-     injected; one whole PAIRED cycle of bench.py's workload (N = 8192,
-     T = 256; B4's backward in row chunks) with its phase split, launch
-     counts and peak device memory, which must stay under half the card;
-     then each kernel's time at the main path's shapes beside
-     its plain twin's and its bound;
+     its gradients within rtol = atol = 1e-4 at B = 32 and 27 * 32; the PLR
+     buffer's kernels (``plr``: the score fold for every kernel strategy,
+     the sample weights, the promotion into empty, part-filled and full
+     buffers) at S = 4000, T = 256, N = 32, each bit-identical over two
+     runs and within 1e-6 of its twin, and the level edits
+     (``multigrid_edit``: ``mutate`` for each editor action set and
+     ``reset_random``) bit-exact; one small DR, PAIRED and ACCEL
+     (generate, replay, edit) sequence on the card against the same on the
+     CPU (plain twins) with their random draws injected; one whole PAIRED
+     cycle of bench.py's workload (N = 8192, T = 256; B4's backward in row
+     chunks) with its phase split, launch counts and peak device memory,
+     which must stay under half the card; then each kernel's time at the
+     main path's shapes beside its plain twin's and its bound;
   4. slices, each with every kernel's launch count read around it: two
      domain-randomization training cycles through the training entry
      point at the settings of
      train_scripts/grid_configs/minigrid/25_blocks/mg_25b_dr.json without
-     PLR, two PAIRED cycles at those of mg_25b_paired.json (N = 32,
-     T = 256, LSTM-256 for both students and the teacher, 5 PPO epochs,
-     fp32), and one PAIRED cycle on bench.py's MultiGrid-Adversarial-v0;
+     PLR; PLR⊥ (mg_25b_robust_plr.json) and ACCEL
+     (60_blocks_uniform/mg_60b_uni_accel_empty.json) at full width (N = 32,
+     T = 256, LSTM-256, a buffer of 4000 levels filled to rho through
+     promote_staged), each a generate and a replay cycle (ACCEL's with its
+     edit cycle) and one cycle by the runner's own coin; two PAIRED cycles
+     at the settings of mg_25b_paired.json (N = 32, T = 256, LSTM-256 for
+     both students and the teacher, 5 PPO epochs, fp32), and one PAIRED
+     cycle on bench.py's MultiGrid-Adversarial-v0;
   5. the ``kernels`` JSON line, then the result line.
 
 It exits non-zero, printing no result, if there is no CUDA card or any
@@ -89,6 +100,40 @@ ADVERSARY_ENVS = ('MultiGrid-GoalLastFewerBlocksAdversarial-v0',
                   'MultiGrid-GoalLastVariableBlocksAdversarialEnv-v0',
                   'MultiGrid-NoisyAdversarial-v0')
 MAIN_N, MAIN_T = 32, 256
+# mg_25b_robust_plr.json and mg_60b_uni_accel_empty.json without
+# --log_action_complexity, --checkpoint and --archive_interval (the
+# entry-points slice); the cycles are driven one by one.
+PLR_COMMON = [
+    '--ued_algo', 'domain_randomization', '--num_processes', '32',
+    '--num_steps', '256', '--ppo_epoch', '5', '--num_mini_batch', '1',
+    '--handle_timelimits', 'true', '--lr', '1e-4', '--gamma', '0.995',
+    '--recurrent_arch', 'lstm', '--recurrent_agent', 'true',
+    '--recurrent_adversary_env', 'false', '--recurrent_hidden_size', '256',
+    '--use_plr', 'true', '--level_replay_rho', '0.5',
+    '--level_replay_seed_buffer_size', '4000',
+    '--level_replay_score_transform', 'rank',
+    '--no_exploratory_grad_updates', 'true', '--log_plr_buffer_stats', 'true',
+    '--log_replay_complexity', 'true', '--reject_unsolvable_seeds', 'false',
+    '--seed', '1']
+ROBUST_PLR_ARGS = PLR_COMMON + [
+    '--env_name', ENV_NAME, '--entropy_coef', '0.01',
+    '--level_replay_prob', '0.5', '--level_replay_temperature', '0.1',
+    '--level_replay_strategy', 'grounded_signed_value_loss',
+    '--staleness_coef', '0.3']
+ACCEL_ARGS = PLR_COMMON + [
+    '--env_name', 'MultiGrid-GoalLastEmptyAdversarialEnv-Edit-v0',
+    '--entropy_coef', '0.0', '--adv_entropy_coef', '0.0',
+    '--level_replay_prob', '0.8', '--level_replay_temperature', '0.3',
+    '--level_replay_strategy', 'positive_value_loss', '--use_editor', 'true',
+    '--level_editor_prob', '1.0', '--level_editor_method', 'random',
+    '--num_edits', '5', '--base_levels', 'easy']
+PLR_S = 4000
+EDIT_ENVS = ('MultiGrid-GoalLastFewerBlocksAdversarial-EditWN-v0',
+             'MultiGrid-GoalLastEmptyAdversarialEnv-Edit-v0',
+             'MultiGrid-GoalLastFewerBlocksAdversarial-v0',
+             'MultiGrid-GoalLastVariableBlocksAdversarialEnv-v0')
+
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -943,6 +988,454 @@ def time_training_kernels(device) -> dict:
     return out
 
 
+def plr_buffer(S, device, seed=0, filled=0.6):
+    """A PLR buffer of S slots: 15x15 levels (35 % walls, a goal and an
+    agent) in a share of them, every fifth a copy of another, scores with
+    ties, seen and unseen slots, staleness and known and unknown grounded
+    values."""
+    import torch
+    from dcd_isaac_tpu_torch.level_replay import plr
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    r = lambda *s: torch.rand(s, generator=g, device=device)
+    full = r(S) < filled
+    grid, start, goal = random_levels(S, device, seed)
+    levels = torch.stack([grid, torch.where(grid == 2, 5, 0).to(torch.uint8),
+                          torch.zeros_like(grid)], -1)
+    rows = torch.arange(S, device=device)
+    levels[rows, goal[:, 0].long(), goal[:, 1].long()] = torch.tensor(
+        [8, 1, 0], dtype=torch.uint8, device=device)
+    copies = torch.arange(0, S - 1, 5, device=device)
+    levels[copies] = levels[copies + 1]
+    levels = levels * full[:, None, None, None]
+    scores = torch.round(torch.randn((S,), generator=g, device=device) * 4) / 4
+    return plr.PLRBuffer(
+        levels=levels, scores=scores * full,
+        staleness=torch.floor(r(S) * 40),
+        unseen=torch.where(full & (r(S) < 0.8), 0.0, 1.0),
+        filled=full, solvable=r(S) < 0.9,
+        grounded_values=torch.where(r(S) < 0.5, r(S),
+                                    torch.full((S,), -1e9, device=device)),
+        num_edits=torch.floor(r(S) * 4).int(),
+        slot_ids=torch.where(full, rows, -1).int(),
+        next_id=torch.tensor(S, dtype=torch.int32, device=device),
+        sample_count=torch.tensor(12.0, device=device),
+        tscl_returns=torch.zeros((S, 10), device=device),
+        tscl_stamps=torch.zeros((S, 10), device=device),
+        tscl_n=torch.zeros(S, dtype=torch.int32, device=device))
+
+
+def plr_rollout(T, N, S, device, seed=0):
+    """A student rollout's PLR fields: sparse rewards, episodes ending one
+    step in twenty (the last step forced, a cliffhanger where no episode
+    ended), each episode on a working seed among the first 300 slots (with
+    repeats; all S when S < 300), on its env's staged seed S + n, or on
+    none."""
+    import torch
+    from types import SimpleNamespace
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    r = lambda *s: torch.rand(s, generator=g, device=device)
+    dones = r(T, N) < 0.05
+    cliff = torch.zeros_like(dones)
+    cliff[-1] = ~dones[-1]
+    dones[-1] = True
+    episode = torch.cat([torch.zeros_like(dones[:1]), dones[:-1]]).long(
+        ).cumsum(0)
+    kind = r(N, T + 1)
+    seed_of = torch.where(
+        kind < 0.5, torch.floor(r(N, T + 1) * min(300, S)).long(),
+        torch.where(kind < 0.8, S + torch.arange(N, device=device)[:, None],
+                    torch.full_like(episode[:1].T, -1)))
+    seeds = seed_of.gather(1, episode.T).T.int().contiguous()
+    return SimpleNamespace(
+        rewards=r(T, N) * (r(T, N) < 0.1), dones=dones, cliffhangers=cliff,
+        level_seeds=seeds,
+        values=torch.randn((T, N), generator=g, device=device),
+        returns=torch.randn((T, N), generator=g, device=device))
+
+
+def plr_staged(buf, N, device, seed=0, n_dups=3):
+    """N staged levels: copies of filled slots, a pair of equal ones, the
+    rest new; scores with ties, a fifth without a completed episode."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 1)
+    r = lambda *s: torch.rand(s, generator=g, device=device)
+    grid, _, goal = random_levels(N, device, seed + 1)
+    levels = torch.stack([grid, torch.zeros_like(grid),
+                          torch.zeros_like(grid)], -1)
+    filled = buf.filled.nonzero().flatten()
+    k = min(n_dups, filled.numel(), N - 2)
+    levels[:k] = buf.levels[filled[:k]]
+    levels[-1] = levels[-2]
+    scores = torch.round(torch.randn((N,), generator=g, device=device) * 4) / 4
+    counts = torch.where(r(N) < 0.8, torch.floor(r(N) * 3) + 1, 0.0)
+    return (levels.contiguous(), scores, counts, r(N) < 0.8,
+            torch.floor(r(N) * 4 + 1).int())
+
+
+def check_diff(name, a, b, atol=0.0, rtol=0.0) -> float:
+    """``max_abs_diff(a, b)`` of a kernel's output and its twin's; raises
+    where an entry's |a - b| passes atol + rtol * |b| (a NaN too)."""
+    err = max_abs_diff(a, b)
+    ok = err <= atol
+    if rtol and not ok:
+        d = (a.double() - b.double()).abs()
+        ok = bool((d <= atol + rtol * b.double().abs()).all())
+    if not ok:
+        raise AssertionError(f'{name}: kernel and twin differ by up to '
+                             f'{err} (atol {atol}, rtol {rtol})')
+    return err
+
+
+def check_plr_fold(T, N, S, device, strategy, seed=0, **kw) -> dict:
+    """Kernel B8 (a) against ``update_with_rollout_plain``: scores,
+    grounded values and staged scores within 1e-6, unseen, staleness and
+    staged counts exact, and the kernel's two runs identical."""
+    from dcd_isaac_tpu_torch.kernels import plr as pk
+    from dcd_isaac_tpu_torch.level_replay import plr
+    cfg = plr.PLRConfig(capacity=S, num_actors=N, strategy=strategy, **kw)
+    buf = plr_buffer(S, device, seed)
+    ro = plr_rollout(T, N, S, device, seed)
+    args = (ro.rewards, ro.values, ro.returns, ro.dones, ro.cliffhangers,
+            ro.level_seeds, buf.scores, buf.unseen, buf.grounded_values,
+            buf.staleness, cfg, S)
+    runs = [pk.score_fold(*args) for _ in range(2)]
+    for a, b in zip(*runs):
+        check_diff(f'score_fold {strategy} second run', a, b)
+    nb, st, cnt = plr.update_with_rollout_plain(buf, cfg, ro, ro.returns,
+                                                ro.values)
+    want = (nb.scores, nb.unseen, nb.grounded_values, nb.staleness, st, cnt)
+    names = ('scores', 'unseen', 'grounded', 'staleness', 'staged_scores',
+             'staged_counts')
+    err = max(check_diff(f'score_fold {strategy} {name}', a, b,
+                         0.0 if name in ('unseen', 'staleness',
+                                         'staged_counts') else 1e-6)
+              for name, a, b in zip(names, runs[0], want))
+    return {'strategy': strategy, **kw, 'T': T, 'N': N, 'S': S,
+            'seeds_scored': int((nb.unseen != buf.unseen).sum()),
+            'staged': int((cnt > 0).sum()), 'max_abs_err': err,
+            'identical_runs': True}
+
+
+# B8 (b)'s weights against the twin: a few float32 ulps of each weight
+# (most weights of a rank transform at a low temperature are far below
+# any useful absolute tolerance; the kernel differs from the twin at most
+# in powf's last bits).
+WEIGHT_RTOL = 4 * 2.0 ** -23
+
+
+def check_plr_weights(S, device, seed=0, **kw) -> dict:
+    """Kernel B8 (b) against ``sample_weights_plain`` within WEIGHT_RTOL of
+    each weight (zero weights exactly), and its two runs identical."""
+    from dcd_isaac_tpu_torch.kernels import plr as pk
+    from dcd_isaac_tpu_torch.level_replay import plr
+    cfg = plr.PLRConfig(capacity=S, num_actors=32, **kw)
+    buf = plr_buffer(S, device, seed)
+    runs = [pk.sample_weights(buf.scores, buf.staleness, buf.unseen, cfg)
+            for _ in range(2)]
+    check_diff('sample_weights second run', *runs)
+    want = plr.sample_weights_plain(buf, cfg)
+    e = check_diff(f'sample_weights {kw}', runs[0], want, rtol=WEIGHT_RTOL)
+    rel = ((runs[0].double() - want.double()).abs()
+           / want.double().abs().clamp_min(1e-300)).max()
+    return {**kw, 'S': S, 'max_abs_err': e, 'max_rel_err': float(rel),
+            'smallest_nonzero_weight': float(want[want > 0].min()),
+            'identical_runs': True}
+
+
+def check_plr_promote(S, N, device, filled, seed=0, **kw) -> dict:
+    """Kernel B8 (c) against ``promote_staged_plain``: levels, ids, masks
+    and counters exact, scores within 1e-6, the kernel's two runs
+    identical."""
+    from dcd_isaac_tpu_torch.kernels import plr as pk
+    from dcd_isaac_tpu_torch.level_replay import plr
+    cfg = plr.PLRConfig(capacity=S, num_actors=N, score_transform='rank',
+                        temperature=0.1, alpha=0.5, **kw)
+    buf = plr_buffer(S, device, seed, filled)
+    staged = plr_staged(buf, N, device, seed)
+    runs = [pk.promote(buf, cfg, *staged) for _ in range(2)]
+    want = plr.promote_staged_plain(buf, cfg, *staged)
+    err = 0.0
+    for f in pk.PROMOTE_FIELDS:
+        check_diff(f'promote {f} second run', runs[0][f], runs[1][f])
+        e = check_diff(f'promote {f}', runs[0][f], getattr(want, f),
+                       1e-6 if f == 'scores' else 0.0)
+        err = max(err, e)
+    return {'S': S, 'N': N, 'filled': filled, **kw,
+            'accepted': int(want.next_id - buf.next_id),
+            'duplicates_folded': int(((want.unseen == 0) & (buf.unseen > 0)
+                                      & buf.filled).sum()),
+            'max_abs_err': err, 'identical_runs': True}
+
+
+def check_plr(device) -> dict:
+    """Kernel B8's three entry points at the main path's S = 4000, T = 256,
+    N = 32: the fold for every kernel strategy (and dense rewards, alpha
+    0.5, a max-score mix, staleness off), the weights for each kernel
+    transform with and without the staleness mix, the promotion into
+    empty, part-filled and full buffers and with more staged levels than
+    free slots."""
+    from dcd_isaac_tpu_torch.kernels import plr as pk
+    folds = [check_plr_fold(MAIN_T, MAIN_N, PLR_S, device, s, seed=k)
+             for k, s in enumerate(sorted(pk.FOLD_STRATEGIES))]
+    for k, kw in enumerate((
+            dict(strategy='grounded_signed_value_loss',
+                 use_dense_rewards=True),
+            dict(strategy='positive_value_loss', alpha=0.5),
+            dict(strategy='value_l1', max_score_coef=0.5),
+            dict(strategy='grounded_signed_value_loss', staleness_coef=0.0))):
+        folds.append(check_plr_fold(MAIN_T, MAIN_N, PLR_S, device,
+                                    seed=20 + k, **kw))
+    weights = [check_plr_weights(PLR_S, device, seed=k, score_transform=t,
+                                 temperature=temp, staleness_transform=st,
+                                 staleness_coef=c)
+               for k, (t, temp, st, c) in enumerate((
+                   ('rank', 0.1, 'power', 0.3), ('rank', 0.3, 'power', 0.3),
+                   ('rank', 1.0, 'power', 0.3),
+                   ('power', 0.3, 'rank', 0.3), ('rank', 0.3, 'power', 0.0),
+                   ('power', 1.0, 'power', 0.0),
+                   ('constant', 1.0, 'power', 0.3)))]
+    promotes = [check_plr_promote(PLR_S, MAIN_N, device, f, seed=k, **kw)
+                for k, (f, kw) in enumerate((
+                    (0.0, {}), (0.5, {}), (1.0, {}),
+                    (0.5, dict(seed_buffer_priority='score')),
+                    (0.5, dict(reject_unsolvable=True)),
+                    (0.5, dict(dedup=False))))]
+    promotes.append(check_plr_promote(PLR_S, 2000, device, 0.7, seed=9))
+    if not (sum(c['seeds_scored'] for c in folds)
+            and sum(c['staged'] for c in folds)
+            and sum(c['duplicates_folded'] for c in promotes)):
+        raise AssertionError('the B8 checks scored, staged or folded nothing')
+    return {'fold': folds, 'weights': weights, 'promote': promotes}
+
+
+def check_multigrid_edit(device) -> dict:
+    """Kernel B9 against its plain twins, bit for bit: ``mutate`` with 5
+    and 40 edits for each editor action set and ``reset_random`` on four
+    env variants, at N = 32 and 4096."""
+    import torch
+    from dcd_isaac_tpu_torch.envs.registry import make_env
+    from dcd_isaac_tpu_torch.kernels import multigrid_edit as me
+    out = {'mutate': [], 'reset_random': []}
+    err = {'mutate': 0.0, 'reset_random': 0.0}
+    for k, name in enumerate(EDIT_ENVS):
+        env = make_env(name)
+        p = env.params
+        for n in (MAIN_N, 4096):
+            g = torch.Generator(device=device)
+            g.manual_seed(k * 7 + n)
+            u = torch.rand((n, me.reset_random_draws(p)), generator=g,
+                           device=device)
+            got, want = me.reset_random(u, p), me.reset_random_plain(u, p)
+            err['reset_random'] = max(
+                err['reset_random'],
+                *(check_diff(f'{name} reset_random output {i}', a, b)
+                  for i, (a, b) in enumerate(zip(got, want))))
+            out['reset_random'].append({'env': name, 'n': n,
+                                        'mean_walls': float(got[4].float()
+                                                            .mean())})
+            state, _ = env.reset_random(n, draws=u)
+            for edits in (5, 40):
+                um = torch.rand((n, me.mutate_draws(edits)), generator=g,
+                                device=device)
+                args = (state.grid, state.goal_pos, state.agent_start_pos,
+                        um, edits, p.editor_actions)
+                got, want = me.mutate(*args), me.mutate_plain(*args)
+                err['mutate'] = max(
+                    err['mutate'],
+                    *(check_diff(f'{name} mutate output {i}', a, b)
+                      for i, (a, b) in enumerate(zip(got, want))))
+                out['mutate'].append({
+                    'env': name, 'editor_actions': p.editor_actions, 'n': n,
+                    'edits': edits,
+                    'goals_moved': int((got[1] != state.goal_pos).any(1)
+                                       .sum())})
+    if not all(c['goals_moved'] for c in out['mutate'] if c['edits'] == 40
+               and c['editor_actions'] != 'walls_none'):
+        raise AssertionError('mutate moved no goal')
+    out['max_abs_err'] = err
+    return out
+
+
+def check_accel_against_cpu(device) -> dict:
+    """A small ACCEL sequence (N = 8, T = 16, S = 64, LSTM-32, 6-step
+    episodes): a generate cycle, then a replay cycle with its edit cycle,
+    on the card and on the CPU from the same weights, levels, actions,
+    replay seeds and draws, edits and permutations.  The buffers must agree
+    (levels, ids and masks exactly, floats within 1e-5) and so must the
+    weight changes (1e-5), with a change beyond that."""
+    import numpy as np
+    import torch
+    from dcd_isaac_tpu_torch.arguments import parser
+    from dcd_isaac_tpu_torch.envs.multigrid.adversarial import (
+        AdversarialMultiGrid,
+    )
+    from dcd_isaac_tpu_torch.envs.multigrid.core import MultiGridParams
+    from dcd_isaac_tpu_torch.kernels import multigrid_edit as me
+    from dcd_isaac_tpu_torch.runner.adversarial_runner import (
+        AdversarialRunner,
+    )
+    from dcd_isaac_tpu_torch.utils.make_agent import make_model
+    n, t, S = 8, 16, 64
+    args = parser.parse_args(ACCEL_ARGS + [
+        '--num_processes', str(n), '--num_steps', str(t),
+        '--recurrent_hidden_size', '32', '--level_replay_seed_buffer_size',
+        str(S)])
+    env = AdversarialMultiGrid(MultiGridParams(
+        size=15, n_clutter=0, choose_goal_last=True, max_steps=6,
+        editor_actions='walls_none_goal'))
+    gen = torch.Generator().manual_seed(0)
+    st, _ = env.reset_random(n, gen, 'cpu')
+    levels = env.get_level(st)
+    rng = np.random.default_rng(0)
+    acts = [torch.tensor(rng.integers(0, 3, (t, n))) for _ in range(3)]
+    perms = [torch.stack([torch.randperm(n, generator=gen)
+                          for _ in range(args.ppo_epoch)]) for _ in range(3)]
+    u = torch.rand((n, me.mutate_draws(args.num_edits)), generator=gen)
+    out = []
+    for dev in ('cpu', device):
+        net = make_model(args, env, generator=torch.Generator().manual_seed(1))
+        before = weights({'agent': net})
+        runner = AdversarialRunner(args, env, {'agent': net.to(dev)}, dev)
+        script = lambda a: (lambda logits, k: a[k].to(dev))
+        runner.run(levels=levels.to(dev), replay=False,
+                   sample_action_fn=script(acts[0]),
+                   perms={'agent': perms[0].to(dev)})
+        filled = runner.plr_buffer.filled.nonzero().flatten().cpu()
+        seeds = filled[torch.arange(n) % filled.numel()]
+        resets = filled[(torch.arange(t * n) * 7) % filled.numel()].view(t, n)
+        stats = runner.run(
+            replay=True, replay_seeds=seeds.to(dev),
+            replay_reset_seeds=lambda k: resets[k].to(dev),
+            sample_action_fn=script(acts[1]), edit_coin=0.0,
+            mutation_draws=u.to(dev), edit_sample_fn=script(acts[2]),
+            perms={'agent': perms[1].to(dev),
+                   'agent_edit': perms[2].to(dev)})
+        buf = {f: getattr(runner.plr_buffer, f).cpu()
+               for f in ('levels', 'scores', 'unseen', 'filled', 'staleness',
+                         'grounded_values', 'num_edits', 'slot_ids',
+                         'next_id', 'sample_count')}
+        out.append((stats, buf, weights({'agent': net})))
+    (cpu_stats, cpu_buf, cpu_after), (card_stats, card_buf, card_after) = out
+    res = compare_weight_changes(before, cpu_after, card_after)['agent']
+    err = max(check_diff(f'card ACCEL buffer {f} against the CPU', a,
+                         cpu_buf[f], 1e-5 if a.is_floating_point() else 0.0)
+              for f, a in card_buf.items())
+    if card_stats['total_num_edits'] != 1 or int(card_buf['num_edits'].max()) < 1:
+        raise AssertionError('the ACCEL sequence made no edit')
+    return {**res, 'buffer_max_abs_err': err,
+            'filled': int(card_buf['filled'].sum()),
+            'max_score': [cpu_stats['max_score'], card_stats['max_score']]}
+
+
+def fill_plr_buffer(runner) -> float:
+    """Promote random-design levels (random scores, one completed episode
+    each) into the runner's buffer until it is filled to rho; returns the
+    proportion filled."""
+    import torch
+    from dcd_isaac_tpu_torch.level_replay import plr
+    cfg = runner.plr_cfg
+    n = runner.args.num_processes
+    g = torch.Generator(device=runner.device)
+    g.manual_seed(5)
+    while float(plr.proportion_filled(runner.plr_buffer)) < cfg.rho:
+        states = runner._random_design()
+        runner.plr_buffer = plr.promote_staged(
+            runner.plr_buffer, cfg, runner.env.get_level(states),
+            torch.rand((n,), generator=g, device=runner.device),
+            torch.ones((n,), device=runner.device),
+            staged_solvable=states.passable)
+    return float(plr.proportion_filled(runner.plr_buffer))
+
+
+def time_plr_kernels(device) -> dict:
+    """Kernels B8 and B9 at the main path's shapes (T = 256, N = 32,
+    S = 4000), with their plain twins and bounds.  Bytes: what the function
+    must move with the buffer updated in place, as the JAX runner's donated
+    state is: the fold reads the rollout and reads and writes the four
+    fields of the seeds this rollout touches; the weights read three
+    fields and write one; the promotion reads every level (the hash) and
+    the eviction order's fields, the staged levels, and writes the slots
+    this run's data accepts or folds a duplicate into.  Operations: a
+    sort's S log2 S comparisons for the rank, ~20 a step for the fold, two
+    hash lanes over every level byte."""
+    import math as m
+    import torch
+    from dcd_isaac_tpu_torch.envs.registry import make_env
+    from dcd_isaac_tpu_torch.kernels import multigrid_edit as me
+    from dcd_isaac_tpu_torch.kernels import plr as pk
+    from dcd_isaac_tpu_torch.level_replay import plr
+    T, N, S = MAIN_T, MAIN_N, PLR_S
+    cfg = plr.PLRConfig(capacity=S, num_actors=N,
+                        strategy='grounded_signed_value_loss',
+                        score_transform='rank', temperature=0.1)
+    buf = plr_buffer(S, device)
+    ro = plr_rollout(T, N, S, device)
+    staged = plr_staged(buf, N, device)
+    L = buf.levels[0].numel()
+    out = {}
+    fold_args = (ro.rewards, ro.values, ro.returns, ro.dones, ro.cliffhangers,
+                 ro.level_seeds, buf.scores, buf.unseen, buf.grounded_values,
+                 buf.staleness, cfg, S)
+    seeds = ro.level_seeds
+    touched = int(torch.unique(seeds[(seeds >= 0) & (seeds < S)]).numel())
+    b = bound(T * N * 18 + 2 * 16 * touched + N * 8, 20 * T * N)
+    out['plr_score_fold'] = {'seeds_touched': touched,
+        'ms': graph_ms(lambda: pk.score_fold(*fold_args), 20),
+        'plain_ms': device_ms(lambda: plr.update_with_rollout_plain(
+            buf, cfg, ro, ro.returns, ro.values), 1, 5),
+        'bound_ms': b[0], 'bound_by': b[1]}
+    b = bound(S * 16, S * m.log2(S) + 8 * S)
+    out['plr_sample_weights'] = {
+        'ms': graph_ms(lambda: pk.sample_weights(
+            buf.scores, buf.staleness, buf.unseen, cfg), 20),
+        'plain_ms': device_ms(lambda: plr.sample_weights_plain(buf, cfg), 1,
+                              10),
+        'bound_ms': b[0], 'bound_by': b[1]}
+    want = plr.promote_staged_plain(buf, cfg, *staged)
+    accepted = int(want.next_id - buf.next_id)
+    folded = int(((want.slot_ids == buf.slot_ids)
+                  & ((want.scores != buf.scores) | (want.unseen != buf.unseen)
+                     | (want.staleness != buf.staleness))).sum())
+    # levels and 4 + 4 + 1 + 4 bytes a slot read (scores, unseen, filled,
+    # staleness for the replay-support order); a slot's L + 26 bytes
+    # written, or 12 (scores, unseen, staleness) for a duplicate's fold
+    b = bound(S * (L + 13) + N * (L + 13) + accepted * (L + 26)
+              + folded * 12 + 8,
+              2 * 2 * S * L + 2 * N * S + S * m.log2(S))
+    out['plr_promote'] = {'slots_written': accepted,
+                          'duplicates_folded': folded,
+        'ms': graph_ms(lambda: pk.promote(buf, cfg, *staged), 20),
+        'plain_ms': device_ms(lambda: plr.promote_staged_plain(
+            buf, cfg, *staged), 1, 10),
+        'bound_ms': b[0], 'bound_by': b[1]}
+    env = make_env('MultiGrid-GoalLastEmptyAdversarialEnv-Edit-v0')
+    p = env.params
+    g = torch.Generator(device=device)
+    g.manual_seed(3)
+    state, _ = env.reset_random(N, g, device)
+    um = torch.rand((N, me.mutate_draws(5)), generator=g, device=device)
+    margs = (state.grid, state.goal_pos, state.agent_start_pos, um, 5,
+             p.editor_actions)
+    cells = p.width * p.height
+    b = bound(N * (cells + 16 + 4 * me.mutate_draws(5) + cells + 20), 0)
+    out['multigrid_mutate'] = {
+        'ms': graph_ms(lambda: me.mutate(*margs), 200),
+        'plain_ms': device_ms(lambda: me.mutate_plain(*margs), 1, 20),
+        'bound_ms': b[0], 'bound_by': b[1]}
+    p25 = make_env(ENV_NAME).params
+    ur = torch.rand((N, me.reset_random_draws(p25)), generator=g,
+                    device=device)
+    b = bound(N * (4 * me.reset_random_draws(p25) + cells + 24), 0)
+    out['multigrid_reset_random'] = {
+        'ms': graph_ms(lambda: me.reset_random(ur, p25), 200),
+        'plain_ms': device_ms(lambda: me.reset_random_plain(ur, p25), 1, 20),
+        'bound_ms': b[0], 'bound_by': b[1]}
+    return out
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1008,9 +1501,22 @@ def main() -> int:
     log('cycle_vs_cpu', t0, **check_cycle_against_cpu(device))
     t0 = time.perf_counter()
     log('paired_cycle_vs_cpu', t0, **check_paired_cycle_against_cpu(device))
+    t0 = time.perf_counter()
+    plr_checks = check_plr(device)
+    torch.cuda.synchronize()
+    log('plr_vs_plain', t0, **plr_checks)
+    t0 = time.perf_counter()
+    edit_checks = check_multigrid_edit(device)
+    torch.cuda.synchronize()
+    log('edit_vs_plain', t0, **edit_checks)
+    t0 = time.perf_counter()
+    log('accel_vs_cpu', t0, **check_accel_against_cpu(device))
 
     from dcd_isaac_tpu_torch import train
+    from dcd_isaac_tpu_torch.arguments import check_args, parser
     from dcd_isaac_tpu_torch.kernels import multigrid_adversary
+    from dcd_isaac_tpu_torch.kernels import multigrid_edit as me
+    from dcd_isaac_tpu_torch.kernels import plr as pk
     from dcd_isaac_tpu_torch.kernels.lstm_seq import lstm_seq
     from dcd_isaac_tpu_torch.kernels.ppo_loss import (
         normalize_advantages, ppo_loss,
@@ -1022,7 +1528,11 @@ def main() -> int:
                 'multigrid_shortest_path': multigrid_adversary.shortest_path,
                 'teacher_proj': teacher_proj, 'lstm_seq': lstm_seq,
                 'ppo_loss': ppo_loss,
-                'normalize_advantages': normalize_advantages}
+                'normalize_advantages': normalize_advantages,
+                'plr_score_fold': pk.score_fold,
+                'plr_sample_weights': pk.sample_weights,
+                'plr_promote': pk.promote, 'multigrid_mutate': me.mutate,
+                'multigrid_reset_random': me.reset_random}
 
     def reset_counts():
         for w in wrappers.values():
@@ -1070,6 +1580,7 @@ def main() -> int:
     times = time_kernels(device)
     times.update(time_teacher_kernels(device))
     times.update(time_training_kernels(device))
+    times.update(time_plr_kernels(device))
     log('kernel_times', t0, **times)
 
     # -- 4. the slices ------------------------------------------------------
@@ -1096,10 +1607,58 @@ def main() -> int:
             stats=history[-1])
         return launches
 
+    def run_plr_slice(phase, argv, need):
+        """A PLR⊥ or ACCEL runner of the training entry point at full
+        width, its buffer filled to rho through promote_staged; then a
+        generate cycle and a replay cycle (with ACCEL its edit cycle), with
+        every kernel's launches counted around them; then one more cycle
+        chosen by the runner's own coin."""
+        t0 = time.perf_counter()
+        runner = train.setup(check_args(parser.parse_args(argv)))
+        filled = fill_plr_buffer(runner)
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        reset_counts()
+        history, seconds = [], []
+        for replay in (False, True, None):
+            c0 = time.perf_counter()
+            history.append(runner.run() if replay is None
+                           else runner.run(replay=replay))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - c0)
+            if replay:
+                launches = read_counts()
+        bad = {k: v for s_ in history for k, v in s_.items()
+               if not math.isfinite(float(v))}
+        short = {k: (launches[k], v) for k, v in need.items()
+                 if launches[k] < v}
+        kinds = [s_['level_replay'] for s_ in history[:2]]
+        if bad or short or kinds != [0, 1]:
+            raise AssertionError(f'{phase}: non-finite {bad}, launches '
+                                 f'short={short}, cycles {kinds}')
+        log(phase, t0, prefill_seconds=fill_s, proportion_filled=filled,
+            cycles=['generate', 'replay + edit' if runner.use_editor
+                    else 'replay', 'coin'],
+            launches=launches, cycle_seconds=seconds,
+            stats_finite=True, stats=history)
+        return launches
+
+    design = lambda moves: {'multigrid_adversary_step': moves}
+    plr_need = {'plr_score_fold': 2, 'plr_sample_weights': 4,
+                'plr_promote': 2, 'multigrid_shortest_path': 1,
+                'multigrid_step': 2 * MAIN_T, 'gae': 2,
+                **update_launches((MAIN_T, MAIN_T))}
     by_path = {
         'dr': run_slice('slice', SLICE_ARGS, 2, {
             'multigrid_step': MAIN_T, 'multigrid_obs': 1, 'gae': 1,
-            'multigrid_shortest_path': 1, **update_launches((MAIN_T,))}),
+            'multigrid_shortest_path': 1, 'multigrid_reset_random': 1,
+            **update_launches((MAIN_T,))}),
+        'robust_plr': run_plr_slice('robust_plr_slice', ROBUST_PLR_ARGS, {
+            **plr_need, **design(27)}),
+        'accel': run_plr_slice('accel_slice', ACCEL_ARGS, {
+            **plr_need, **design(2), 'plr_score_fold': 3, 'plr_promote': 4,
+            'multigrid_mutate': 1, 'multigrid_step': 3 * MAIN_T, 'gae': 3,
+            **update_launches((MAIN_T, MAIN_T, MAIN_T))}),
         'paired': run_slice('paired_slice', PAIRED_ARGS, 2, {
             'multigrid_adversary_step': 27, 'teacher_proj': 27 + 1 + 5,
             'multigrid_step': 2 * MAIN_T, 'multigrid_obs': 2, 'gae': 3,
@@ -1119,7 +1678,14 @@ def main() -> int:
             'multigrid_shortest_path': bfs['max_abs_err'],
             'teacher_proj': max(c['max_abs_err'] for c in proj),
             'lstm_seq': max(c['max_abs_err'] for c in checks['lstm_seq']),
-            'ppo_loss': max(c['max_abs_err'] for c in checks['ppo_loss'])}
+            'ppo_loss': max(c['max_abs_err'] for c in checks['ppo_loss']),
+            'plr_score_fold': max(c['max_abs_err'] for c in plr_checks['fold']),
+            'plr_sample_weights': max(c['max_abs_err']
+                                      for c in plr_checks['weights']),
+            'plr_promote': max(c['max_abs_err'] for c in plr_checks['promote']),
+            'multigrid_mutate': edit_checks['max_abs_err']['mutate'],
+            'multigrid_reset_random':
+                edit_checks['max_abs_err']['reset_random']}
     grad_errs = {'ppo_loss': {'grad_errors': [
         {'R': c['R'], 'A': c['A'], **c['grads']}
         for c in checks['ppo_loss']]}}
@@ -1148,6 +1714,18 @@ def main() -> int:
                      'dcd_isaac_tpu/models/common.py:125'),
         'ppo_loss': ('dcd_isaac_tpu_torch/csrc/ppo_loss.cu',
                      'dcd_isaac_tpu/algos/ppo.py:82'),
+        'plr_score_fold': ('dcd_isaac_tpu_torch/csrc/plr.cu',
+                           'dcd_isaac_tpu/level_replay/plr.py:345'),
+        'plr_sample_weights': ('dcd_isaac_tpu_torch/csrc/plr.cu',
+                               'dcd_isaac_tpu/level_replay/plr.py:189'),
+        'plr_promote': ('dcd_isaac_tpu_torch/csrc/plr.cu',
+                        'dcd_isaac_tpu/level_replay/plr.py:525'),
+        'multigrid_mutate': (
+            'dcd_isaac_tpu_torch/csrc/multigrid_edit.cu',
+            'dcd_isaac_tpu/envs/multigrid/adversarial.py:284'),
+        'multigrid_reset_random': (
+            'dcd_isaac_tpu_torch/csrc/multigrid_edit.cu',
+            'dcd_isaac_tpu/envs/multigrid/adversarial.py:206'),
     }
     # `launches` counts kernel launches, forward and backward (see
     # update_launches); B7's entry also carries the advantage

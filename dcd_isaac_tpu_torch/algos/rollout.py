@@ -48,6 +48,9 @@ class RolloutConfig:
     num_steps: int
     clip_reward: Optional[float] = None
     handle_timelimits: bool = False
+    # record the policy's log-softmax at every step (PLR's entropy and
+    # margin strategies read it; one more launch a step)
+    record_log_dists: bool = False
 
 
 def _select(mask: torch.Tensor, new: dict, old: dict) -> dict:
@@ -135,11 +138,15 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
                     next_obs = _select(real_done, reset[1], next_obs)
                     next_seeds = torch.where(real_done, reset[2], next_seeds)
 
-                steps.append(dict(
+                step = dict(
                     obs=carry.obs, actions=action, log_probs=log_prob,
                     values=value, rewards=reward, masks_pre=carry.mask,
                     dones=done, bad_masks=1.0 - truncated.float(),
-                    trunc_values=trunc_value))
+                    trunc_values=trunc_value, cliffhangers=cliffhanger,
+                    level_seeds=carry.level_seeds)
+                if cfg.record_log_dists:
+                    step['log_dists'] = torch.log_softmax(logits, -1)
+                steps.append(step)
                 carry = StepCarry(
                     env_state=env_state, obs=next_obs, rnn_carry=rnn_carry,
                     mask=1.0 - done.float(), level_seeds=next_seeds,

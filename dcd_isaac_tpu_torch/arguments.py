@@ -6,7 +6,11 @@ grid configs in train_scripts/grid_configs/*.json drive the port unchanged.
 The JAX package's XLA/TPU-only knobs are not copied; the port refuses
 ``--bf16 true`` (it is fp32) and, until the entry-points slice, the
 logging settings it would otherwise ignore: ``--log_action_complexity
-true``, ``--checkpoint true`` and ``--archive_interval`` > 0.
+true``, ``--checkpoint true`` and ``--archive_interval`` > 0.  The PLR
+and editor flags run (``--log_plr_buffer_stats`` is accepted: the PLR
+stats are in every cycle's stats, as in the JAX package); the runner
+refuses the methods that wait for later slices (PLR with a teacher, a
+fixed PLR seed set).
 ``--no_cuda true`` asks for the CPU; otherwise the entry points run on the
 card.
 """

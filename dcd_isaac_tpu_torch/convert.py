@@ -1,4 +1,4 @@
-"""Carry weights from the JAX student to the port.
+"""Carry weights and level buffers from the JAX package to the port.
 
 ``from_flax`` takes the flax parameter tree of a ``MultigridNetwork``, the
 student's or the teacher's (as numpy arrays, with or without the top-level
@@ -8,12 +8,20 @@ has the same names at other widths: the conv-128 kernel, a scalar embed of
 ``adversary_max_steps + 1`` → 10 and a 21 692-row input kernel whose rows
 are the conv features in (h, w, c) order, then the scalar embed, then
 ``random_z``, the order of the port's embed and of kernel B4.
+
+``from_jax_plr`` takes the fields of a JAX ``PLRBuffer`` (as numpy arrays,
+an object with those attributes or a dict) and returns the port's
+``PLRBuffer`` with the same contents on a device.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from .level_replay.plr import PLRBuffer
 
 
 def _t(a) -> torch.Tensor:
@@ -62,3 +70,18 @@ def from_flax(params_np: dict) -> dict:
             i += 1
         _dense(sd, f'{side}_head', p[f'{side}_head'])
     return sd
+
+
+def from_jax_plr(buf, device='cpu') -> PLRBuffer:
+    """JAX PLRBuffer fields (numpy arrays, by attribute or key) → the
+    port's PLRBuffer on ``device``, with the same dtypes (float32 scores,
+    int32 ids and counts, bool masks, uint8 levels)."""
+    get = buf.get if isinstance(buf, dict) else (
+        lambda k: getattr(buf, k))
+    out = {}
+    for f in dataclasses.fields(PLRBuffer):
+        a = np.asarray(get(f.name))
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        out[f.name] = torch.tensor(a, device=device)
+    return PLRBuffer(**out)

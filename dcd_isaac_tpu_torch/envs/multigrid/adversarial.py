@@ -2,12 +2,13 @@
 
 Port of ``dcd_isaac_tpu/envs/multigrid/adversarial.py``: the teacher's
 construction (``reset``, ``step_adversary``), ``reset_random``,
-``get_level``, ``reset_to_level``, ``reset_agent`` and ``step``.  Every
-method takes and returns a batch of N envs.  ``step_adversary`` is kernel
-B5 (``kernels/multigrid_adversary.py``).  The random draws of the
-construction come from a ``torch.Generator``; the ``draws`` arguments
-replace them (the parity tests inject them).  ``mutate_level`` and
-``reset_alp_gmm`` come with the slices that need them.
+``get_level``, ``reset_to_level``, ``mutate_level``, ``reset_agent`` and
+``step``.  Every method takes and returns a batch of N envs.
+``step_adversary`` is kernel B5 (``kernels/multigrid_adversary.py``),
+``reset_random`` and ``mutate_level`` kernel B9
+(``kernels/multigrid_edit.py``).  The random draws come from a
+``torch.Generator``; the ``draws`` arguments replace them (the parity
+tests inject them).  ``reset_alp_gmm`` comes with the ALP-GMM slice.
 """
 
 from __future__ import annotations
@@ -16,11 +17,11 @@ from typing import Optional
 
 import torch
 
-from ...kernels import multigrid_adversary
-from .constants import EMPTY, GOAL, WALL
+from ...kernels import multigrid_adversary, multigrid_edit
+from .constants import WALL
 from .core import (
     MultiGridParams, MultiGridState, compute_metrics, decode_grid,
-    encode_grid, init_state, reset_agent, sample_cell_from_mask, step_agent,
+    encode_grid, init_state, reset_agent, step_agent,
 )
 
 
@@ -41,6 +42,10 @@ class AdversarialMultiGrid:
     @property
     def adversary_rollout_steps(self) -> int:
         return self.params.adversary_max_steps
+
+    @property
+    def level_shape(self) -> tuple:
+        return (self.params.width, self.params.height, 3)
 
     @property
     def adversary_obs_shapes(self) -> dict:
@@ -107,49 +112,55 @@ class AdversarialMultiGrid:
         return (state, self._adversary_obs(state, out['image'], random_z),
                 out['done'])
 
-    def reset_random(self, n: int, generator: torch.Generator, device=None):
-        """N domain-randomized levels (adversarial.py:206-257).
+    def reset_random(self, n: int, generator: torch.Generator = None,
+                     device=None, draws: Optional[torch.Tensor] = None):
+        """N domain-randomized levels (adversarial.py:206-257), kernel B9.
 
-        Goal, then agent, uniform over empty cells; then ``n_clutter // 2``
-        walls (U[0, n_clutter) in variable-block mode), one at a time, each
-        on an empty cell other than the agent's.
+        Goal, then agent, uniform over empty cells; a direction; then
+        ``n_clutter // 2`` walls (U[0, n_clutter) in variable-block mode),
+        one at a time, each on an empty cell other than the agent's.  The
+        draws are ``draws`` (N, 4 + max_walls) uniforms (layout in
+        ``kernels/multigrid_edit.py``), else taken from ``generator``.
         """
         p = self.params
-        device = device if device is not None else generator.device
-        state = init_state(p, n, device)
-        grid = state.grid
-        rows = torch.arange(n, device=device)
+        if draws is None:
+            device = device if device is not None else generator.device
+            draws = torch.rand((n, multigrid_edit.reset_random_draws(p)),
+                               generator=generator, device=device)
+        grid, goal, agent, direction, placed = multigrid_edit.reset_random(
+            draws.contiguous(), p)
+        state = init_state(p, n, grid.device).replace(
+            grid=grid, goal_pos=goal, agent_start_pos=agent,
+            agent_start_dir=direction, n_clutter_placed=placed,
+            adv_step_count=torch.full_like(placed, p.adversary_max_steps))
+        state = compute_metrics(state, p)
+        return reset_agent(state, p)
 
-        goal = sample_cell_from_mask(grid == EMPTY, generator)
-        grid[rows, goal[:, 0].long(), goal[:, 1].long()] = GOAL
-        agent = sample_cell_from_mask(grid == EMPTY, generator)
-        agent_dir = torch.randint(0, 4, (n,), generator=generator,
-                                  device=device, dtype=torch.int32)
-        if p.resample_n_clutter:
-            n_walls = torch.randint(0, max(p.n_clutter, 1), (n,),
-                                    generator=generator, device=device)
-        else:
-            n_walls = torch.full((n,), p.n_clutter // 2, device=device)
-        max_walls = max(p.n_clutter // 2,
-                        p.n_clutter if p.resample_n_clutter else 0)
+    def mutate_level(self, state: MultiGridState, num_edits: int,
+                     generator: torch.Generator = None,
+                     draws: Optional[torch.Tensor] = None):
+        """ACCEL's edit of every level (adversarial.py:284-372), kernel B9.
 
-        ax, ay = agent[:, 0].long(), agent[:, 1].long()
-        placed = torch.zeros((n,), dtype=torch.int32, device=device)
-        for i in range(max_walls):
-            mask = grid == EMPTY
-            mask[rows, ax, ay] = False
-            pos = sample_cell_from_mask(mask, generator)
-            do = (i < n_walls) & mask.flatten(1).any(1)
-            px, py = pos[:, 0].long(), pos[:, 1].long()
-            grid[rows, px, py] = torch.where(
-                do, torch.full_like(grid[rows, px, py], WALL),
-                grid[rows, px, py])
-            placed += do.int()
-
+        ``num_edits`` interior cells drawn with replacement each get one of
+        the env's editor actions (wall, clear, goal, agent), applied in
+        order; a removed goal is re-placed on a free cell other than the
+        agent's, a removed agent on an empty cell; then the BFS and the
+        agents' reset.  The draws are ``draws`` (N, 2 num_edits + 2)
+        uniforms, else taken from ``generator``.
+        """
+        p = self.params
+        n = state.grid.shape[0]
+        if draws is None:
+            draws = torch.rand((n, multigrid_edit.mutate_draws(num_edits)),
+                               generator=generator, device=state.grid.device)
+        grid, goal, agent, n_walls = multigrid_edit.mutate(
+            state.grid, state.goal_pos, state.agent_start_pos,
+            draws.contiguous(), num_edits, p.editor_actions)
         state = state.replace(
             grid=grid, goal_pos=goal, agent_start_pos=agent,
-            agent_start_dir=agent_dir, n_clutter_placed=placed,
-            adv_step_count=torch.full_like(placed, p.adversary_max_steps))
+            n_clutter_placed=n_walls,
+            step_count=torch.zeros_like(state.step_count),
+            adv_step_count=torch.full_like(n_walls, p.adversary_max_steps))
         state = compute_metrics(state, p)
         return reset_agent(state, p)
 

@@ -18,9 +18,7 @@ from typing import Tuple
 import torch
 
 from ...kernels import multigrid_adversary
-from ...kernels.multigrid_adversary import (
-    encode_plain, sample_cell_from_uniform,
-)
+from ...kernels.multigrid_adversary import encode_plain
 from ...kernels.multigrid_step import multigrid_obs, multigrid_step
 from .constants import AGENT, EMPTY, GOAL, UNSEEN, WALL
 
@@ -125,19 +123,6 @@ def init_state(params: MultiGridParams, n: int, device) -> MultiGridState:
         shortest_path_length=torch.full((n,), params.max_shortest_path, **i32),
         distance_to_goal=torch.full((n,), -1, **i32),
     )
-
-
-def sample_cell_from_mask(mask: torch.Tensor, generator: torch.Generator
-                          ) -> torch.Tensor:
-    """Uniformly sample an (x, y) cell where ``mask`` (N, W, H) is True.
-
-    Draws one uniform number per env and takes that quantile of the env's
-    True cells in flat order (core.py:140-152 draws with a categorical; the
-    distribution is the same, the random stream is not).  An empty mask
-    gives cell (0, 0).  Returns (N, 2) int32.
-    """
-    u = torch.rand((mask.shape[0],), generator=generator, device=mask.device)
-    return sample_cell_from_uniform(mask, u)
 
 
 def encode_grid(state: MultiGridState) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All sources in ``csrc/*.cu`` are compiled by ONE ``nvcc -shared`` call into
+Each source in ``csrc/*.cu`` is compiled by its own ``nvcc -c``, all of
+them started together, and one ``nvcc -shared`` links the objects into
 ``_build/libdcd_kernels_<hash>.so`` (the hash covers the sources and the
-flags) and loaded with ``ctypes``.  Each kernel exposes a plain C entry
+flags), loaded with ``ctypes``.  Each kernel exposes a plain C entry
 point that takes device pointers and a stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch, so nothing includes PyTorch's
 headers and the build takes seconds.
@@ -49,6 +50,13 @@ SIGNATURES = {
                                           _P],
     'dcd_normalize_advantages_workspace': [_I],
     'dcd_normalize_advantages': [_P] * 4 + [_I, _P],
+    'dcd_plr_score_fold': [_P] * 14 + [_I] * 7 + [_F] * 5 + [_P],
+    'dcd_plr_sample_weights': [_P] * 6 + [_I, _I, _F, _I, _I] + [_F] * 4
+                              + [_P],
+    'dcd_plr_promote': [_P] * 19 + [_I] * 6 + [_I, _F, _I, _I] + [_F] * 6
+                       + [_P],
+    'dcd_multigrid_mutate': [_P] * 8 + [_I] * 5 + [_P],
+    'dcd_multigrid_reset_random': [_P] * 6 + [_I] * 6 + [_P],
 }
 
 
@@ -84,27 +92,53 @@ def build(verbose: bool = False) -> tuple:
     """Compile the kernels unless the hashed library exists.
 
     Returns ``(path, seconds spent building)``; 0 seconds when the library
-    was already there.
+    was already there.  Every ``nvcc`` it starts has ended when it returns
+    or raises.
     """
     path = library_path()
     if os.path.exists(path):
         return path, 0.0
+    nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{path}.{os.getpid()}.tmp'
-    cmd = [find_nvcc(), *NVCC_FLAGS]
+    stem = f'{path}.{os.getpid()}'
+    compile_flags = [f for f in NVCC_FLAGS if f != '-shared']
     if verbose:
-        cmd += ['-Xptxas', '-v']
-    cmd += ['-o', tmp, *sources()]
+        compile_flags += ['-Xptxas', '-v']
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    jobs = []
+    try:
+        for src in sources():
+            obj = f'{stem}.{os.path.basename(src)}.o'
+            cmd = [nvcc, *compile_flags, '-c', '-o', obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                                   f'{" ".join(cmd)}\n{out}')
+            logs.append(out)
+        cmd = [nvcc, *NVCC_FLAGS, '-o', f'{stem}.tmp',
+               *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                               f'{" ".join(cmd)}\n{proc.stdout}\n'
+                               f'{proc.stderr}')
+    finally:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
-            f'{proc.stdout}\n{proc.stderr}')
     if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, path)
+        print(''.join(logs), flush=True)
+    os.replace(f'{stem}.tmp', path)
     return path, seconds
 
 

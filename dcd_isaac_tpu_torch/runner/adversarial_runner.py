@@ -1,10 +1,23 @@
-"""The DCD cycle: teacher → students → regret → teacher update.
+"""The DCD cycle: levels → students → regret → curriculum updates.
 
-Port of ``dcd_isaac_tpu/runner/adversarial_runner.py``'s generate cycle
-(:527-643) for ``--use_plr false``:
-  * ``domain_randomization``: N random levels (``reset_random``); the
-    student rolls out with DR auto-reset (a fresh random level for every
-    finished episode); no teacher.
+Port of ``dcd_isaac_tpu/runner/adversarial_runner.py``: the generate cycle
+(:527-643), the replay cycle (:674-752), the edit cycle (:754-796) and the
+host loop that picks them (:924-984).
+  * ``domain_randomization`` without PLR: N random levels
+    (``reset_random``, kernel B9); the student rolls out with DR
+    auto-reset; no teacher.
+  * ``domain_randomization`` with PLR (PLR, PLR⊥ with
+    ``--no_exploratory_grad_updates``, ACCEL with ``--use_editor``): each
+    cycle a coin on the buffer (``sample_replay_decision``) picks a
+    generate cycle, whose N levels a uniform-random teacher builds
+    (``_random_design``, kernel B5) and which are staged, scored and
+    promoted into the buffer (PLR⊥ discards that cycle's gradients), or a
+    replay cycle, which draws N levels from the buffer by their weights
+    and again on every finished episode, and scores them.  With the
+    editor, a second coin may follow a replay cycle with an edit cycle:
+    the levels (or the 4 'easy' ones) are mutated, evaluated without a
+    gradient step and staged.  The buffer is kernel B8's
+    (``level_replay/plr.py``).
   * ``paired``, ``flexible_paired``, ``minimax``: the teacher builds N
     levels move by move (``make_adversary_rollout``, kernel B5 with the
     teacher's projection B4); the protagonist, and for the PAIRED variants
@@ -13,8 +26,8 @@ Port of ``dcd_isaac_tpu/runner/adversarial_runner.py``'s generate cycle
     becomes the last reward of its rollout, and the teacher takes its own
     PPO update after both students.
 Each student phase runs GAE and the recurrent PPO update.  The cycle runs
-eagerly on the runner's device; ``run`` reads its stats back to the host
-once.
+eagerly on the runner's device; ``run`` reads the coins and the stats back
+to the host.
 """
 
 from __future__ import annotations
@@ -31,13 +44,20 @@ from ..algos.rollout import (
     RolloutConfig, initial_step_carry, make_adversary_rollout,
     make_student_rollout,
 )
-from ..algos.storage import compute_gae
+from ..algos.storage import batched_value_loss, compute_gae
+from ..level_replay import plr as plr_lib
 
 # The slice of the port each other method waits for (ROADMAP.md queue A).
 _WAITS = {
     'alp_gmm': 'the remaining-methods slice',
 }
 _TEACHER_ALGOS = ('paired', 'flexible_paired', 'minimax')
+# The draws ``run`` lets a caller inject.
+_INJECTED = ('levels', 'sample_action_fn', 'antagonist_sample_fn',
+             'teacher_sample_fn', 'edit_sample_fn', 'reset_fn',
+             'reset_draws', 'teacher_draws_fn', 'design', 'replay',
+             'replay_seeds', 'replay_reset_seeds', 'edit_coin',
+             'mutation_draws', 'perms')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,17 +92,31 @@ class AdversarialRunner:
             raise NotImplementedError(
                 f'ued_algo={algo!r} is not ported yet; it waits '
                 f'for {_WAITS.get(algo, "a later slice")}')
-        for flag in ('use_plr', 'use_editor', 'normalize_returns',
-                     'use_popart', 'adv_use_popart'):
+        for flag in ('normalize_returns', 'use_popart', 'adv_use_popart'):
             if getattr(args, flag):
                 raise NotImplementedError(f'--{flag} is not ported yet')
+        if args.use_plr and algo != 'domain_randomization':
+            raise NotImplementedError(
+                f'--use_plr with --ued_algo {algo} (REPAIRED) is not ported '
+                'yet; it waits for the remaining-methods slice')
+        if args.use_plr and not args.train_full_distribution:
+            raise NotImplementedError(
+                '--train_full_distribution false (a fixed PLR seed set) is '
+                'not ported yet; it waits for the remaining-methods slice')
+        N = args.num_processes
+        if (args.use_editor and args.base_levels == 'easy'
+                and N % 4):
+            raise ValueError('--base_levels easy requires num_processes % 4 '
+                             '== 0')
         self.args = args
         self.env = env
         self.models = models
         self.device = torch.device(device)
         self.is_training_env = algo in _TEACHER_ALGOS
         self.is_paired = algo in ('paired', 'flexible_paired')
-        N = args.num_processes
+        self.use_plr = args.use_plr
+        self.use_editor = args.use_editor
+        self.robust_plr = args.no_exploratory_grad_updates
 
         self.ppo_cfg = PPOConfig(
             clip_param=args.clip_param, ppo_epoch=args.ppo_epoch,
@@ -97,9 +131,34 @@ class AdversarialRunner:
             num_mini_batch=args.adv_num_mini_batch,
             entropy_coef=args.adv_entropy_coef,
             max_grad_norm=args.adv_max_grad_norm)
+        # PLR's buffer of levels (JAX runner :109-139, :266-286)
+        self.plr_cfg = self.plr_buffer = None
+        if self.use_plr:
+            self.plr_cfg = plr_lib.PLRConfig(
+                capacity=args.level_replay_seed_buffer_size,
+                num_actors=N,
+                full_distribution=args.train_full_distribution,
+                strategy=args.level_replay_strategy,
+                replay_schedule=args.level_replay_schedule,
+                score_transform=args.level_replay_score_transform,
+                temperature=args.level_replay_temperature,
+                eps=args.level_replay_eps,
+                rho=args.level_replay_rho,
+                replay_prob=args.level_replay_prob,
+                alpha=args.level_replay_alpha,
+                staleness_coef=args.staleness_coef,
+                staleness_transform=args.staleness_transform,
+                staleness_temperature=args.staleness_temperature,
+                seed_buffer_priority=args.level_replay_seed_buffer_priority,
+                gamma=args.gamma,
+                reject_unsolvable=args.reject_unsolvable_seeds)
+            self.plr_buffer = plr_lib.init_plr(self.plr_cfg, env.level_shape,
+                                               self.device)
         self._student_ro_cfg = RolloutConfig(
             num_steps=args.num_steps, clip_reward=args.clip_reward,
-            handle_timelimits=args.handle_timelimits)
+            handle_timelimits=args.handle_timelimits,
+            record_log_dists=self.use_plr and args.level_replay_strategy in (
+                'policy_entropy', 'least_confidence', 'min_margin'))
 
         # One train state, update and generator per role.
         roles = ['agent']
@@ -126,6 +185,7 @@ class AdversarialRunner:
         self.student_grad_updates = 0
         self.agent_returns = deque(maxlen=10)
         self.adversary_agent_returns = deque(maxlen=10)
+        self.latest_env_stats = {}
 
     # ------------------------------------------------------------------
     def _reset_random_fn(self):
@@ -140,12 +200,14 @@ class AdversarialRunner:
     def _generate_levels(self, levels: Optional[torch.Tensor] = None,
                          teacher_sample_fn: Optional[Callable] = None,
                          teacher_draws_fn: Optional[Callable] = None,
-                         reset_draws: Optional[dict] = None):
+                         reset_draws: Optional[dict] = None,
+                         design: Optional[dict] = None):
         """→ (env_states, teacher rollout, teacher next value) (:321-344).
 
         The teacher builds the levels (``paired``, ``flexible_paired``,
-        ``minimax``); DR draws them with ``reset_random``, or takes
-        ``levels``.
+        ``minimax``); DR with PLR builds them with a uniform-random teacher
+        (``design`` holds its injected draws); DR without PLR draws them
+        with ``reset_random``; ``levels`` replaces DR's.
         """
         N = self.args.num_processes
         if self.is_training_env:
@@ -158,15 +220,59 @@ class AdversarialRunner:
             return rollout(env_states, obs, gen)
         if levels is not None:
             env_states, _ = self.env.reset_to_level(levels.to(self.device))
+        elif self.use_plr and not self.args.use_reset_random_dr:
+            env_states = self._random_design(**(design or {}))
         else:
             env_states, _ = self.env.reset_random(
                 N, self.generators['agent'], self.device)
         return env_states, None, None
 
+    def _random_design(self, actions_fn: Optional[Callable] = None,
+                       draws_fn: Optional[Callable] = None,
+                       reset_draws: Optional[dict] = None):
+        """N levels built by a uniform-random teacher (:346-366): the
+        construction's moves, kernel B5, with uniform random placements.
+        ``actions_fn(t)`` and ``draws_fn(t)`` replace the moves and
+        ``step_adversary``'s draws, ``reset_draws`` those of ``reset``."""
+        env, N = self.env, self.args.num_processes
+        gen = self.generators['agent']
+        env_states, _ = env.reset(N, gen, self.device, reset_draws)
+        for t in range(env.adversary_rollout_steps):
+            if actions_fn is None:
+                moves = torch.randint(0, env.adversary_num_actions, (N,),
+                                      generator=gen, device=self.device,
+                                      dtype=torch.int32)
+            else:
+                moves = actions_fn(t).to(self.device, torch.int32)
+            env_states, _, _ = env.step_adversary(
+                env_states, moves, gen,
+                draws_fn(t) if draws_fn is not None else None)
+        return env_states
+
+    def _replay_reset_fn(self, levels, weights,
+                         seeds_fn: Optional[Callable] = None):
+        """Mid-rollout replay resets (:233-244): each finished slot takes a
+        level drawn by the weights frozen at the rollout's start;
+        ``seeds_fn(t)`` (N,) replaces the draws of step t."""
+        env, N = self.env, self.args.num_processes
+        gen = self.generators['agent']
+
+        def reset_fn(t, state, seeds):
+            if seeds_fn is None:
+                new = torch.multinomial(weights, N, replacement=True,
+                                        generator=gen)
+            else:
+                new = seeds_fn(t).to(self.device, torch.int64)
+            state, obs = env.reset_to_level(levels[new])
+            return state, obs, new.int()
+        return reset_fn
+
     def _student_phase(self, role, env_states, level_seeds, rollout_fn,
-                       perms=None):
-        """Rollout, GAE and PPO update of one student (:397-464, without
-        PLR)."""
+                       perms=None, discard_grad: bool = False,
+                       update_sampler: bool = False):
+        """Rollout, GAE, PLR scoring and PPO update of one student
+        (:397-464).  With ``update_sampler`` the rollout folds into the PLR
+        buffer and its staged scores and counts come back in ``staged``."""
         args = self.args
         model = self.models[role]
         gen = self.generators[role]
@@ -176,11 +282,27 @@ class AdversarialRunner:
         returns = compute_gae(
             steps, next_value, args.gamma, args.gae_lambda,
             use_proper_time_limits=args.handle_timelimits)
-        upd_stats = self.updates[role](
+        info = {'rollout': ro_stats}
+        if update_sampler:
+            cfg = self.plr_cfg
+            plr_returns = returns
+            if cfg.strategy == 'alt_advantage_abs':
+                plr_returns = compute_gae(
+                    steps, next_value, cfg.alt_gamma, args.gae_lambda,
+                    use_proper_time_limits=args.handle_timelimits)
+            self.plr_buffer, st_scores, st_counts = (
+                plr_lib.update_with_rollout(self.plr_buffer, cfg, steps,
+                                            plr_returns, steps.values))
+            info['staged'] = (st_scores, st_counts)
+        if self.use_plr:
+            info['batched_value_loss'] = batched_value_loss(
+                returns, steps.values, clipped=not (
+                    args.adv_use_popart or args.adv_normalize_returns))
+        info['update'] = self.updates[role](
             self.train_states[role], steps, returns,
             model.initial_carry((args.num_processes,), self.device),
-            gen, False, perms)
-        return {'rollout': ro_stats, 'update': upd_stats}
+            gen, discard_grad, perms)
+        return info
 
     def _env_return(self, agent_ro, antag_ro):
         """The teacher's return (:487-511): the PAIRED regret, the
@@ -225,7 +347,8 @@ class AdversarialRunner:
             self.generators['adversary_env'], False, perms)
 
     def _device_stats(self, env_states, a_info, b_info, t_stats, env_ret):
-        """The cycle's stats as device scalars (:798-840)."""
+        """The cycle's stats as device scalars (:798-862), and the env
+        complexity stats of ``env_states`` (None without them)."""
         ro, upd = a_info['rollout'], a_info['update']
         stats = {
             'mean_env_return': env_ret.mean(),
@@ -258,62 +381,64 @@ class AdversarialRunner:
                 'adversary_env_value_loss': t_stats['value_loss'],
                 'adversary_env_dist_entropy': t_stats['dist_entropy'],
             })
-        solved = max_r > 0
-        spl = env_states.shortest_path_length.float()
-        stats.update({
-            'num_blocks': env_states.n_clutter_placed.float().mean(),
-            'passable_ratio': env_states.passable.float().mean(),
-            'shortest_path_length': spl.mean(),
-            'solved_path_length': torch.where(
-                solved.any(),
-                (spl * solved).sum() / solved.sum().clamp(min=1),
-                torch.zeros_like(spl[0])),
-        })
-        return stats
+        env_stats = None
+        if env_states is not None:
+            solved = max_r > 0
+            spl = env_states.shortest_path_length.float()
+            env_stats = {
+                'num_blocks': env_states.n_clutter_placed.float().mean(),
+                'passable_ratio': env_states.passable.float().mean(),
+                'shortest_path_length': spl.mean(),
+                'solved_path_length': torch.where(
+                    solved.any(),
+                    (spl * solved).sum() / solved.sum().clamp(min=1),
+                    torch.zeros_like(spl[0])),
+            }
+        if self.use_plr:
+            stats.update(plr_lib.plr_stats(self.plr_buffer, self.plr_cfg))
+        return stats, env_stats
 
     # ------------------------------------------------------------------
-    def run(self, levels: Optional[torch.Tensor] = None,
-            sample_action_fn: Optional[Callable] = None,
-            reset_fn: Optional[Callable] = None,
-            perms: Optional[Dict[str, torch.Tensor]] = None,
-            antagonist_sample_fn: Optional[Callable] = None,
-            teacher_sample_fn: Optional[Callable] = None,
-            teacher_draws_fn: Optional[Callable] = None,
-            reset_draws: Optional[dict] = None) -> Dict[str, float]:
-        """One cycle; returns the host-side stats dict.
-
-        The keyword arguments replace the cycle's random draws (the parity
-        tests inject them): ``levels`` (N, W, H, 3) for DR's levels,
-        ``sample_action_fn(logits, t)`` / ``antagonist_sample_fn`` /
-        ``teacher_sample_fn`` for the actions of each role,
-        ``reset_fn(t, state, seeds)`` for DR's auto-reset levels,
-        ``reset_draws`` and ``teacher_draws_fn(t)`` for the draws of the
-        teacher's ``reset`` and moves, and ``perms`` (role → (epochs, N))
-        for the minibatch permutations.
-        """
+    # The cycles (:527-796)
+    # ------------------------------------------------------------------
+    def _cycle_generate(self, inj: dict):
+        """New levels: the teacher's (with its update), DR's, or with PLR
+        the random teacher's, staged and promoted into the buffer."""
         N = self.args.num_processes
-        perms = perms or {}
+        perms = inj.get('perms') or {}
         env_states, t_rollout, t_next_value = self._generate_levels(
-            levels, teacher_sample_fn, teacher_draws_fn, reset_draws)
-        seeds = torch.full((N,), -1, dtype=torch.int32, device=self.device)
-        if self.is_training_env:
+            inj.get('levels'), inj.get('teacher_sample_fn'),
+            inj.get('teacher_draws_fn'), inj.get('reset_draws'),
+            inj.get('design'))
+        if self.use_plr:
+            seeds = (torch.arange(N, dtype=torch.int32, device=self.device)
+                     + self.plr_cfg.capacity)
+        else:
+            seeds = torch.full((N,), -1, dtype=torch.int32,
+                               device=self.device)
+        if self.is_training_env or self.use_plr:
             reset_fn = None     # same-level auto-reset (JAX _ro_same)
         else:
-            reset_fn = reset_fn or self._reset_random_fn()
-        self.student_grad_updates += 1
+            reset_fn = inj.get('reset_fn') or self._reset_random_fn()
         a_info = self._student_phase(
             'agent', env_states, seeds, make_student_rollout(
                 self.env, self.models['agent'], self._student_ro_cfg,
-                reset_fn=reset_fn, sample_action_fn=sample_action_fn),
-            perms.get('agent'))
+                reset_fn=reset_fn,
+                sample_action_fn=inj.get('sample_action_fn')),
+            perms.get('agent'), discard_grad=self.use_plr and self.robust_plr,
+            update_sampler=self.use_plr)
         b_info = None
         if self.is_paired:
             b_info = self._student_phase(
                 'adversary_agent', env_states, seeds, make_student_rollout(
                     self.env, self.models['adversary_agent'],
                     self._student_ro_cfg,
-                    sample_action_fn=antagonist_sample_fn),
+                    sample_action_fn=inj.get('antagonist_sample_fn')),
                 perms.get('adversary_agent'))
+        if self.use_plr:
+            self.plr_buffer = plr_lib.promote_staged(
+                self.plr_buffer, self.plr_cfg, self.env.get_level(env_states),
+                *a_info['staged'], staged_solvable=env_states.passable)
         env_ret = self._env_return(
             a_info['rollout'],
             b_info['rollout'] if b_info is not None else a_info['rollout'])
@@ -321,17 +446,140 @@ class AdversarialRunner:
         if self.is_training_env:
             t_stats = self._teacher_update(t_rollout, t_next_value, env_ret,
                                            perms.get('adversary_env'))
-        stats = self._device_stats(env_states, a_info, b_info, t_stats,
-                                   env_ret)
-        self.total_seeds_collected += N
-        self.num_updates += 1
-        return self._host_assemble(stats)
+        return self._device_stats(env_states, a_info, b_info, t_stats,
+                                  env_ret)
 
-    def _host_assemble(self, stats) -> Dict[str, float]:
-        """Per-cycle stats on the host, with the run's counters (:986-1064)."""
-        keys = list(stats)
-        vals = torch.stack([stats[k].float() for k in keys]).tolist()
+    def _cycle_replay(self, inj: dict):
+        """N levels drawn from the buffer, and again for every finished
+        episode; the student's rollout scores them.  → ((stats, env
+        stats), seeds, the 'easy' metric mean return - batched value
+        loss)."""
+        N = self.args.num_processes
+        perms = inj.get('perms') or {}
+        seeds, levels, self.plr_buffer = plr_lib.sample_replay_levels(
+            self.plr_buffer, self.plr_cfg, N, self.generators['agent'],
+            inj.get('replay_seeds'))
+        env_states, _ = self.env.reset_to_level(levels)
+        weights = plr_lib.sample_weights(self.plr_buffer, self.plr_cfg)
+        reset_fn = self._replay_reset_fn(self.plr_buffer.levels, weights,
+                                         inj.get('replay_reset_seeds'))
+        a_info = self._student_phase(
+            'agent', env_states, seeds, make_student_rollout(
+                self.env, self.models['agent'], self._student_ro_cfg,
+                reset_fn=reset_fn,
+                sample_action_fn=inj.get('sample_action_fn')),
+            perms.get('agent'), update_sampler=True)
+        env_ret = self._env_return(a_info['rollout'], a_info['rollout'])
+        stats, env_stats = self._device_stats(
+            env_states if self.args.log_replay_complexity else None, a_info,
+            None, None, env_ret)
+        easy = a_info['rollout']['mean_return'] - a_info['batched_value_loss']
+        return (stats, env_stats), seeds, easy
+
+    def _cycle_edit(self, parents, inj: dict):
+        """ACCEL (:754-796): the parents' levels mutated, evaluated without
+        a gradient step, staged and promoted with one edit more."""
+        N = self.args.num_processes
+        buf = self.plr_buffer
+        parents = parents.long()
+        parent_edits = buf.num_edits[parents]
+        env_states, _ = self.env.reset_to_level(buf.levels[parents])
+        env_states, _ = self.env.mutate_level(
+            env_states, self.args.num_edits, self.generators['agent'],
+            inj.get('mutation_draws'))
+        seeds = (torch.arange(N, dtype=torch.int32, device=self.device)
+                 + self.plr_cfg.capacity)
+        a_info = self._student_phase(
+            'agent', env_states, seeds, make_student_rollout(
+                self.env, self.models['agent'], self._student_ro_cfg,
+                sample_action_fn=inj.get('edit_sample_fn')),
+            (inj.get('perms') or {}).get('agent_edit'), discard_grad=True,
+            update_sampler=True)
+        self.plr_buffer = plr_lib.promote_staged(
+            self.plr_buffer, self.plr_cfg, self.env.get_level(env_states),
+            *a_info['staged'], staged_solvable=env_states.passable,
+            staged_num_edits=parent_edits + 1)
+
+    def _coin(self, value) -> torch.Tensor:
+        if value is not None:
+            return torch.as_tensor(value, dtype=torch.float32)
+        return torch.rand((), generator=self.generators['agent'],
+                          device=self.device)
+
+    # ------------------------------------------------------------------
+    def run(self, **inj) -> Dict[str, float]:
+        """One cycle; returns the host-side stats dict.
+
+        The keyword arguments replace the cycle's random draws (the parity
+        tests inject them): ``levels`` (N, W, H, 3) for DR's levels,
+        ``sample_action_fn(logits, t)`` / ``antagonist_sample_fn`` /
+        ``teacher_sample_fn`` / ``edit_sample_fn`` for the actions of the
+        student, the antagonist, the teacher and the edit cycle's student,
+        ``reset_fn(t, state, seeds)`` for DR's auto-reset levels,
+        ``reset_draws`` and ``teacher_draws_fn(t)`` for the draws of the
+        teacher's ``reset`` and moves, ``design`` (``actions_fn``,
+        ``draws_fn``, ``reset_draws``) for the random teacher of DR with
+        PLR, ``replay`` (bool) for the replay decision, ``replay_seeds``
+        (N,) for the replay cycle's levels, ``replay_reset_seeds(t)`` (N,)
+        for its mid-rollout draws, ``edit_coin`` (a uniform) for the edit
+        decision, ``mutation_draws`` (N, 2 num_edits + 2) for the edits,
+        and ``perms`` (role → (epochs, N); ``'agent_edit'`` for the edit
+        cycle) for the minibatch permutations.  Every other draw comes
+        from the runner's generators.
+        """
+        unknown = set(inj) - set(_INJECTED)
+        if unknown:
+            raise TypeError(f'run() got unknown draws {sorted(unknown)}')
+        args = self.args
+        N = args.num_processes
+        level_replay = False
+        if self.use_plr:
+            replay = inj.get('replay')
+            if replay is None:
+                replay = plr_lib.sample_replay_decision(
+                    self.plr_buffer, self.plr_cfg, self._coin(None))
+            level_replay = bool(replay)
+        if not (self.use_plr and not level_replay and self.robust_plr):
+            self.student_grad_updates += 1
+        if level_replay:
+            stats, seeds, easy = self._cycle_replay(inj)
+        else:
+            stats = self._cycle_generate(inj)
+            self.total_seeds_collected += N
+        if (self.use_editor and level_replay and float(
+                self._coin(inj.get('edit_coin'))) < args.level_editor_prob):
+            if args.base_levels == 'easy' and N >= 4:
+                order = torch.argsort(easy, stable=True)[:4]
+                parents = seeds[order].repeat(N // 4)
+            else:
+                parents = seeds
+            self._cycle_edit(parents, inj)
+            self.total_num_edits += 1
+        self.num_updates += 1
+        return self._host_assemble(*stats, level_replay)
+
+    def _host_assemble(self, stats, env_stats,
+                       level_replay: bool = False) -> Dict[str, float]:
+        """Per-cycle stats on the host, with the run's counters
+        (:986-1064): fresh env stats on generate cycles (and, with
+        ``--log_replay_complexity``, 'plr_'-prefixed on replay cycles),
+        else the latest ones again under PLR."""
+        env_stats = env_stats or {}
+        keys = list(stats) + [f'_env_{k}' for k in env_stats]
+        vals = torch.stack([v.float() for v in (*stats.values(),
+                                                *env_stats.values())]
+                           ).tolist()
         host = dict(zip(keys, vals))
+        fresh = {k[len('_env_'):]: host.pop(k) for k in keys
+                 if k.startswith('_env_')}
+        if fresh:
+            prefix = 'plr_' if level_replay else ''
+            fresh = {prefix + k: v for k, v in fresh.items()}
+            host.update(fresh)
+            if self.use_plr:
+                self.latest_env_stats.update(fresh)
+        elif self.latest_env_stats:
+            host.update(self.latest_env_stats)
         n_epi = host.pop('episodes')
         ret_sum = host.pop('returns_sum')
         self.total_episodes_collected += int(n_epi)
@@ -349,12 +597,13 @@ class AdversarialRunner:
                 if self.adversary_agent_returns else 0.0)
         host.update({
             'episodes': int(n_epi),
+            # ACCEL's edit rollouts count as N * T env steps (PARITY.md #9)
             'steps': ((self.num_updates + self.total_num_edits)
                       * self.args.num_processes * self.args.num_steps),
             'total_episodes': self.total_episodes_collected,
             'total_seeds': self.total_seeds_collected,
             'total_student_grad_updates': self.student_grad_updates,
-            'level_replay': 0,
+            'level_replay': int(level_replay),
             'total_num_edits': self.total_num_edits,
         })
         return host

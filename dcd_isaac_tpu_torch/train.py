@@ -4,8 +4,10 @@
 paired ...`` parses the port's arguments, builds the env, the models of
 ``--ued_algo`` (``make_all_models``) and the runner on the card
 (``--no_cuda true`` asks for the CPU) and runs cycles
-until ``--num_env_steps``, printing one JSON stats line per cycle.  CSV logs,
-checkpoints and in-training evaluation come with the entry-points slice.
+until ``--num_env_steps``, printing one JSON stats line per cycle.  With
+``--use_plr true`` the runner keeps a PLR buffer and picks generate, replay
+(and with ``--use_editor true``, edit) cycles.  CSV logs, checkpoints and
+in-training evaluation come with the entry-points slice.
 """
 
 from __future__ import annotations
@@ -23,18 +25,23 @@ from .runner.adversarial_runner import AdversarialRunner
 from .utils.make_agent import make_all_models
 
 
+def setup(args) -> AdversarialRunner:
+    """The runner that checked arguments build: env, models, device."""
+    device = resolve_device('cpu' if args.no_cuda else None)
+    env = make_env(args.env_name)
+    init_gen = torch.Generator().manual_seed(args.seed)
+    models = {role: model.to(device) for role, model in
+              make_all_models(args, env, init_gen).items()}
+    return AdversarialRunner(args, env, models, device)
+
+
 def main(argv=None):
     """Train; returns ``(runner, per-cycle stats dicts)``."""
     args = check_args(parser.parse_args(argv))
     print(f'dcd_isaac_tpu_torch.train: no CSV log is written to '
           f'--log_dir {args.log_dir} yet (ROADMAP queue A.4); the stats go '
           f'to stdout, one JSON line per cycle', file=sys.stderr)
-    device = resolve_device('cpu' if args.no_cuda else None)
-    env = make_env(args.env_name)
-    init_gen = torch.Generator().manual_seed(args.seed)
-    models = {role: model.to(device) for role, model in
-              make_all_models(args, env, init_gen).items()}
-    runner = AdversarialRunner(args, env, models, device)
+    runner = setup(args)
 
     num_updates = args.num_env_steps // args.num_steps // args.num_processes
     history = []

@@ -233,3 +233,74 @@ def test_ppo_loss_matches_plain_and_repeats(device, rows, actions,
         adv.double(), normalize_advantages_plain(data[5].double(),
                                                  data[1].double()),
         atol=1e-6, rtol=1e-6)
+
+
+# Kernels B8 and B9: the checks are chip_smoke.py's, at more shapes.
+
+@pytest.mark.parametrize('strategy', [
+    'grounded_signed_value_loss', 'positive_value_loss', 'value_l1',
+    'one_step_td_error', 'uniform'])
+@pytest.mark.parametrize('shape', [(256, 32, 4000), (16, 8, 64),
+                                   (64, 1024, 300)])
+def test_plr_score_fold_matches_plain_and_repeats(device, shape, strategy):
+    """Kernel B8 (a): scores, grounded values and staged scores within 1e-6
+    of the twin, unseen, staleness and staged counts exact, two runs
+    bit-identical; one launch a fold."""
+    import chip_smoke
+    from dcd_isaac_tpu_torch.kernels import plr as pk
+    before = pk.score_fold.launches
+    out = chip_smoke.check_plr_fold(*shape, device, strategy)
+    torch.cuda.synchronize()
+    assert pk.score_fold.launches == before + 2
+    assert out['seeds_scored'] > 0 and out['staged'] > 0
+
+
+@pytest.mark.parametrize('transforms', [
+    ('rank', 0.1, 'power', 0.3), ('rank', 0.3, 'rank', 0.3),
+    ('rank', 1.0, 'power', 0.3),
+    ('power', 0.3, 'power', 0.0), ('constant', 1.0, 'power', 0.3)])
+@pytest.mark.parametrize('S', [64, 4000, 5000])
+def test_plr_sample_weights_match_plain(device, S, transforms):
+    """Kernel B8 (b) within a few ulps of each of the twin's weights
+    (chip_smoke.WEIGHT_RTOL), identical over two runs, at buffer sizes
+    below, at and above the block's 1024 threads."""
+    import chip_smoke
+    from dcd_isaac_tpu_torch.kernels import plr as pk
+    t, temp, st, c = transforms
+    before = pk.sample_weights.launches
+    chip_smoke.check_plr_weights(S, device, score_transform=t,
+                                 temperature=temp, staleness_transform=st,
+                                 staleness_coef=c)
+    assert pk.sample_weights.launches == before + 2
+
+
+@pytest.mark.parametrize('case', [
+    (4000, 32, 0.0, {}), (4000, 32, 0.5, {}), (4000, 32, 1.0, {}),
+    (64, 8, 0.97, {}), (4000, 2000, 0.7, {}),
+    (4000, 32, 0.5, dict(seed_buffer_priority='score')),
+    (4000, 32, 0.5, dict(dedup=False))])
+def test_plr_promote_matches_plain(device, case):
+    """Kernel B8 (c): levels, ids, masks and counters exact, scores within
+    1e-6, bit-identical over two runs; two launches (hash, promotion),
+    one without the dedup."""
+    import chip_smoke
+    from dcd_isaac_tpu_torch.kernels import plr as pk
+    S, N, filled, kw = case
+    before = pk.promote.launches
+    chip_smoke.check_plr_promote(S, N, device, filled, **kw)
+    assert pk.promote.launches == before + (2 if kw.get('dedup', True)
+                                            else 1) * 2
+
+
+def test_multigrid_edit_bit_exact(device):
+    """Kernel B9: mutate (5 and 40 edits, every editor action set) and
+    reset_random (four env variants) bit-exact at N = 32 and 4096."""
+    import chip_smoke
+    from dcd_isaac_tpu_torch.kernels import multigrid_edit as me
+    before = (me.mutate.launches, me.reset_random.launches)
+    chip_smoke.check_multigrid_edit(device)
+    torch.cuda.synchronize()
+    n_env = len(chip_smoke.EDIT_ENVS)
+    # reset_random: the check's own, then the state's for the mutations
+    assert (me.mutate.launches, me.reset_random.launches) == (
+        before[0] + 4 * n_env, before[1] + 4 * n_env)

@@ -120,7 +120,7 @@ def test_train_entry_point_runs_dr_cycles(capsys):
 
 @pytest.mark.parametrize('flags,error', [
     (['--ued_algo', 'alp_gmm'], NotImplementedError),
-    (['--use_plr', 'true'], NotImplementedError),
+    (['--use_popart', 'true'], NotImplementedError),
     (['--bf16', 'true'], ValueError),
     (['--ued_algo', 'paired', '--recurrent_adversary_env', 'false'],
      NotImplementedError),

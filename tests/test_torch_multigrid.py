@@ -21,8 +21,10 @@ from dcd_isaac_tpu.envs.multigrid.core import (
 )
 from dcd_isaac_tpu_torch.envs.multigrid.adversarial import AdversarialMultiGrid
 from dcd_isaac_tpu_torch.envs.multigrid.core import (
-    MultiGridParams, sample_cell_from_mask,
-    shortest_path,
+    MultiGridParams, shortest_path,
+)
+from dcd_isaac_tpu_torch.kernels.multigrid_adversary import (
+    sample_cell_from_uniform,
 )
 from dcd_isaac_tpu_torch.envs.multigrid.constants import EMPTY, GOAL, WALL
 from dcd_isaac_tpu_torch.envs.registry import make_env
@@ -219,17 +221,21 @@ def test_reset_random_invariants(name, n_walls):
 
 
 def test_sample_cell_from_mask_is_uniform_over_mask():
+    """The port draws a cell of a mask as the k-th True cell of a uniform
+    (the draws of kernels B5 and B9 and their twins): uniform over the
+    mask, cell (0, 0) for an empty mask."""
     mask = torch.zeros((1, 5, 5), dtype=torch.bool)
     cells = [(1, 1), (2, 3), (4, 0)]
     for x, y in cells:
         mask[0, x, y] = True
     mask = mask.expand(3000, 5, 5).contiguous()
-    got = sample_cell_from_mask(mask, torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    got = sample_cell_from_uniform(mask, torch.rand(3000, generator=gen))
     seen = {tuple(c) for c in got.tolist()}
     assert seen == set(cells)
     counts = np.array([(got == torch.tensor(c)).all(1).sum().item()
                        for c in cells])
     assert (abs(counts - 1000) < 150).all(), counts
-    empty = sample_cell_from_mask(torch.zeros((2, 5, 5), dtype=torch.bool),
-                                  torch.Generator().manual_seed(1))
+    empty = sample_cell_from_uniform(torch.zeros((2, 5, 5), dtype=torch.bool),
+                                     torch.rand(2, generator=gen))
     assert empty.tolist() == [[0, 0], [0, 0]]
