@@ -35,8 +35,15 @@ Phases, each printing one JSON line with its wall time:
      CPU (plain twins) with their random draws injected; one whole PAIRED
      cycle of bench.py's workload (N = 8192, T = 256; B4's backward in row
      chunks) with its phase split, launch counts and peak device memory,
-     which must stay under half the card; then each kernel's time at the
-     main path's shapes beside its plain twin's and its bound;
+     which must stay under half the card; the walker's kernels against
+     their twins (``walker_vs_plain``: B11's terrain and placement bit for
+     bit on 1024 levels each of the full, easy and POET ranges and five
+     terrain kinds, B10 one step at a time from 120 states of 64 walkers
+     within 1e-4, B7's Gaussian branch at R = 1024 and 32 768, B8's
+     promotion of float levels with duplicates exact) and a small walker
+     ACCEL sequence on the card against the CPU (``walker_vs_cpu``); then
+     each kernel's time at the main path's shapes beside its plain twin's
+     and its bound;
   4. slices, each with every kernel's launch count read around it: two
      domain-randomization training cycles through the training entry
      point at the settings of
@@ -49,6 +56,14 @@ Phases, each printing one JSON line with its wall time:
      at the settings of mg_25b_paired.json (N = 32, T = 256, LSTM-256 for
      both students and the teacher, 5 PPO epochs, fp32), and one PAIRED
      cycle on bench.py's MultiGrid-Adversarial-v0;
+     ``walker_cycles``: bipedal_accel.json at full width (N = 16,
+     T = 2048, the MLP student, 5 epochs of 32 minibatches, VecNormalize,
+     S = 1000 filled to rho through promote_staged) for a generate and a
+     replay + edit cycle and one bipedal_robust_plr.json replay cycle, each
+     with its seconds, launches, host syncs and peak memory; three cycles
+     of bipedal_accel.json and one of bipedal_robust_plr.json,
+     bipedal_dr.json and bipedal_accel_poet.json through the training
+     entry point;
   5. the ``kernels`` JSON line, then the result line.
 
 It exits non-zero, printing no result, if there is no CUDA card or any
@@ -251,27 +266,34 @@ def check_multigrid(n: int, steps: int, device, seed: int = 0) -> dict:
             'goals': n_goal, 'max_abs_err': err}
 
 
-def gae_inputs(T, N, device, seed=0):
+def gae_inputs(T, N, device, seed=0, dense=False):
+    """GAE's inputs: sparse rewards (MultiGrid's) or, with ``dense``, a
+    reward every step of the size VecNormalize scales them to (the
+    walker's)."""
     import torch
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     r = lambda *s: torch.rand(s, generator=g, device=device)
     rn = lambda *s: torch.randn(s, generator=g, device=device)
-    return dict(rewards=r(T, N) * (r(T, N) < 0.1), values=rn(T, N),
+    rewards = rn(T, N) * 0.3 if dense else r(T, N) * (r(T, N) < 0.1)
+    return dict(rewards=rewards, values=rn(T, N),
                 dones=r(T, N) < 0.05, bad_masks=(r(T, N) < 0.5).float(),
                 trunc_values=rn(T, N), next_value=rn(N))
 
 
-def check_gae(T, N, proper, device) -> dict:
+def check_gae(T, N, proper, device, gamma=0.995, gae_lambda=0.95,
+              dense=False) -> dict:
     import torch
     from dcd_isaac_tpu_torch.kernels.gae import gae, gae_plain
-    x = gae_inputs(T, N, device)
-    got = gae(**x, gamma=0.995, gae_lambda=0.95, use_proper_time_limits=proper)
-    want = gae_plain(**x, gamma=0.995, gae_lambda=0.95,
+    x = gae_inputs(T, N, device, dense=dense)
+    got = gae(**x, gamma=gamma, gae_lambda=gae_lambda,
+              use_proper_time_limits=proper)
+    want = gae_plain(**x, gamma=gamma, gae_lambda=gae_lambda,
                      use_proper_time_limits=proper)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     err = float((got - want).abs().max())
-    return {'T': T, 'N': N, 'proper': proper, 'max_abs_err': err}
+    return {'T': T, 'N': N, 'proper': proper, 'gamma': gamma,
+            'gae_lambda': gae_lambda, 'dense': dense, 'max_abs_err': err}
 
 
 def weights(models: dict) -> dict:
@@ -651,8 +673,7 @@ def check_ppo_loss(R, A, clip_value_loss, device) -> dict:
     the advantage normalisation within 1e-6 of the twin in float64."""
     import torch
     from dcd_isaac_tpu_torch.kernels.ppo_loss import (
-        normalize_advantages, normalize_advantages_plain, ppo_loss,
-        ppo_loss_plain, ppo_loss_plain_backward,
+        ppo_loss, ppo_loss_plain, ppo_loss_plain_backward,
     )
     rows = ppo_inputs(R, device, A)
     cfg = (0.2, clip_value_loss, 0.5, 0.01)
@@ -681,19 +702,29 @@ def check_ppo_loss(R, A, clip_value_loss, device) -> dict:
         err = float((a - b).abs().max())
         grads[name] = {'max_abs_err': err, 'max_abs_ref': scale,
                        'max_err_over_ref': err / scale}
-    ret, val = rows[5], rows[1]
-    adv = normalize_advantages(ret, val)
-    want_adv = normalize_advantages_plain(ret.double(), val.double())
-    torch.testing.assert_close(adv.double(), want_adv, atol=1e-6, rtol=1e-6)
+    norm = check_normalize(rows[5], rows[1])
     return {'R': R, 'A': A, 'clip_value_loss': clip_value_loss,
             'means': runs[0][0].tolist(),
             'max_rel_err_means': float(((runs[0][0].double() - want).abs()
                                         / want.abs()).max()),
             'max_abs_err': max(g['max_abs_err'] for g in grads.values()),
             'grads': grads,
-            'normalize_max_abs_err': float((adv.double() - want_adv).abs()
-                                           .max()),
+            'normalize_max_abs_err': norm['max_abs_err'],
             'bit_identical_runs': same}
+
+
+def check_normalize(returns, values) -> dict:
+    """B7's advantage normalisation of returns - values (R,) against its
+    twin in float64, within 1e-6."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels.ppo_loss import (
+        normalize_advantages, normalize_advantages_plain,
+    )
+    adv = normalize_advantages(returns, values)
+    want = normalize_advantages_plain(returns.double(), values.double())
+    torch.testing.assert_close(adv.double(), want, atol=1e-6, rtol=1e-6)
+    return {'R': returns.shape[0],
+            'max_abs_err': float((adv.double() - want).abs().max())}
 
 
 def check_paired_cycle_at_bench_size(device) -> dict:
@@ -1436,6 +1467,553 @@ def time_plr_kernels(device) -> dict:
     return out
 
 
+# -- the walker (slice 5) ---------------------------------------------------
+
+# bipedal_accel.json without --checkpoint and --archive_interval (the
+# entry-points slice): N = 16, T = 2048, the MLP student, 5 epochs of 32
+# minibatches, VecNormalize, PLR⊥ (S = 1000) and ACCEL (3 edits, easy
+# parents).
+WALKER_N, WALKER_T, WALKER_S = 16, 2048, 1000
+WALKER_COMMON = [
+    '--ued_algo', 'domain_randomization', '--num_processes', str(WALKER_N),
+    '--num_steps', str(WALKER_T), '--ppo_epoch', '5',
+    '--num_mini_batch', '32', '--normalize_returns', 'true',
+    '--recurrent_agent', 'false', '--recurrent_adversary_env', 'false',
+    '--recurrent_hidden_size', '1', '--lr', '3e-4', '--max_grad_norm', '0.5',
+    '--gamma', '0.99', '--gae_lambda', '0.9', '--value_loss_coef', '0.5',
+    '--entropy_coef', '0.001', '--adv_entropy_coef', '0.01',
+    '--clip_value_loss', 'false', '--clip_param', '0.2',
+    '--handle_timelimits', 'true', '--use_plr', 'true',
+    '--level_replay_strategy', 'positive_value_loss',
+    '--level_replay_score_transform', 'rank', '--level_replay_rho', '0.5',
+    '--level_replay_seed_buffer_size', str(WALKER_S), '--staleness_coef',
+    '0.5', '--log_plr_buffer_stats', 'true', '--log_replay_complexity',
+    'true', '--log_grad_norm', 'true', '--seed', '1']
+BIPEDAL_ACCEL_ARGS = WALKER_COMMON + [
+    '--env_name', 'BipedalWalker-Adversarial-Easy-v0',
+    '--level_replay_prob', '0.9', '--no_exploratory_grad_updates', 'true',
+    '--use_editor', 'true', '--level_editor_prob', '1.0',
+    '--level_editor_method', 'random', '--num_edits', '3',
+    '--base_levels', 'easy']
+BIPEDAL_ROBUST_PLR_ARGS = WALKER_COMMON + [
+    '--env_name', 'BipedalWalker-Adversarial-v0',
+    '--level_replay_prob', '0.5', '--no_exploratory_grad_updates', 'true']
+BIPEDAL_DR_ARGS = WALKER_COMMON + [
+    '--env_name', 'BipedalWalker-Adversarial-v0',
+    '--level_replay_prob', '0.0', '--no_exploratory_grad_updates', 'false']
+BIPEDAL_POET_ARGS = BIPEDAL_ACCEL_ARGS + [
+    '--env_name', 'BipedalWalker-POET-Easy-v0']
+# one level of each terrain kind: (roughness, pit lo, pit hi, stump lo,
+# stump hi, stair lo, stair hi, stair steps)
+WALKER_KINDS = {
+    'flat': [0, 0, 0, 0, 0, 0, 0, 1], 'rough': [6.0, 0, 0, 0, 0, 0, 0, 1],
+    'stump': [1.0, 0, 0, 0.5, 2.0, 0, 0, 1],
+    'stair': [0.5, 0, 0, 0, 0, 0.5, 1.5, 6.4],
+    'pit': [0.5, 1.0, 4.0, 0, 0, 0, 0, 1]}
+WALKER_STEP_ATOL = 1e-4
+
+
+def walker_levels(n, device, seed=0):
+    """n (9,) walker levels cycling through WALKER_KINDS, with random seeds
+    in [0, 2^24)."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    kinds = torch.tensor(list(WALKER_KINDS.values()), dtype=torch.float32,
+                         device=device)
+    params = kinds[torch.arange(n, device=device) % len(kinds)]
+    s = torch.randint(0, 1 << 24, (n,), generator=g, device=device)
+    return torch.cat([params, s.float()[:, None]], 1)
+
+
+def range_levels(n, ranges, poet, device, seed=0):
+    """n levels uniform over a walker env's param ranges (POET: params 5-7
+    zero), with random seeds: what reset_random draws."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    r = torch.tensor(ranges, dtype=torch.float32, device=device)
+    u = torch.rand((n, 8), generator=g, device=device)
+    params = u * (r[:, 1] - r[:, 0]) + r[:, 0]
+    if poet:
+        params[:, 5:] = 0.0
+    s = torch.randint(0, 1 << 24, (n,), generator=g, device=device)
+    return torch.cat([params, s.float()[:, None]], 1)
+
+
+def check_walker_terrain(device) -> dict:
+    """Kernel B11 against its twins (``generate_terrain`` of the seeds'
+    hashed draws, ``place_walker``), bit for bit: 1024 levels each from the
+    full, easy and POET ranges and the five terrain kinds."""
+    import torch
+    from dcd_isaac_tpu_torch.envs.walker.adversarial import (
+        PARAM_RANGES_EASY, PARAM_RANGES_FULL,
+    )
+    from dcd_isaac_tpu_torch.envs.walker.env import (
+        place_walker, placement_draw,
+    )
+    from dcd_isaac_tpu_torch.envs.walker.terrain import (
+        generate_terrain, terrain_draws,
+    )
+    from dcd_isaac_tpu_torch.kernels import walker_terrain
+    sets = {'full': range_levels(1024, PARAM_RANGES_FULL, False, device, 1),
+            'easy': range_levels(1024, PARAM_RANGES_EASY, False, device, 2),
+            'poet': range_levels(1024, PARAM_RANGES_FULL, True, device, 3),
+            'kinds': walker_levels(1024, device, 4)}
+    out, err = {}, 0.0
+    for name, lv in sets.items():
+        params, seeds = lv[:, :8].contiguous(), lv[:, 8].int().contiguous()
+        terr, bodies = walker_terrain.generate(params, seeds)
+        want_t = generate_terrain(params, terrain_draws(seeds))
+        want_b = place_walker(placement_draw(seeds))
+        for f in ('xs', 'ys', 'boxes', 'n_boxes'):
+            err = max(err, check_diff(f'walker_terrain {name} {f}',
+                                      getattr(terr, f), getattr(want_t, f)))
+        for f in ('pos', 'angle', 'vel', 'angvel'):
+            err = max(err, check_diff(f'walker_terrain {name} bodies {f}',
+                                      getattr(bodies, f),
+                                      getattr(want_b, f)))
+        out[name] = {'levels': lv.shape[0],
+                     'mean_boxes': float(terr.n_boxes.float().mean()),
+                     'full_budget': int((terr.n_boxes == 64).sum())}
+    if not out['full']['mean_boxes'] > 0:
+        raise AssertionError('walker_terrain: the full range made no boxes')
+    return {'max_abs_err': err, 'sets': out}
+
+
+def on_first_box(state, which):
+    """``state`` with the walkers where ``which`` (N,) moved, all bodies
+    together, so that the left lower leg stands centred on the level's
+    first box (a stump, a stair's tread or a pit's wall), its lowest corner
+    1 cm deep: states whose contacts are with boxes, which a walk from the
+    start (x = 4.7 m; no obstacle before x = 9.3 m) seldom reaches."""
+    import dataclasses
+    import torch
+    from dcd_isaac_tpu_torch.envs.walker.physics import world_vertices
+    b = state.bodies
+    foot = world_vertices(b)[:, 2, :4]                      # (N, 4, 2)
+    box = state.terrain.boxes[:, 0]
+    shift = torch.stack([(box[:, 0] + box[:, 2]) / 2 - foot[..., 0].mean(1),
+                         box[:, 3] - 0.01 - foot[..., 1].amin(1)], -1)
+    shift = torch.where(which[:, None], shift, torch.zeros_like(shift))
+    return state.replace(bodies=dataclasses.replace(
+        b, pos=b.pos + shift[:, None, :]))
+
+
+def check_walker_step(n, steps, device) -> dict:
+    """Kernel B10 against its twin (``step_walker_plain``) one step at a
+    time from the states of a random walk of n walkers over the five
+    terrain kinds (reset when an episode ends), every other walker of a
+    level with boxes starting on its first box (``on_first_box``): every
+    float output within WALKER_STEP_ATOL (the card's cosf and sinf against
+    torch's; the solver is chaotic, so the two are compared one step from
+    the same state, never along a trajectory), the contact flags, done and
+    finish exact.  Fails unless some steps start with a foot on the
+    ground, with a vertex in a box, and some end an episode."""
+    import torch
+    from dcd_isaac_tpu_torch.envs.walker.adversarial import (
+        AdversarialWalker, WalkerParams,
+    )
+    from dcd_isaac_tpu_torch.envs.walker.env import step_walker_plain
+    from dcd_isaac_tpu_torch.envs.walker.physics import contact_candidates
+    from dcd_isaac_tpu_torch.kernels import walker_step
+    env = AdversarialWalker(WalkerParams())
+    levels = walker_levels(n, device, 5)
+    start, _ = env.reset_to_level(levels)
+    start = on_first_box(start, (start.terrain.n_boxes > 0)
+                         & (torch.arange(n, device=device) % 2 == 0))
+    state = start
+    g = torch.Generator(device=device)
+    g.manual_seed(6)
+    err = {'state': 0.0, 'obs': 0.0, 'reward': 0.0}
+    contacts = dones = boxed = 0
+    for _ in range(steps):
+        a = torch.rand((n, 4), generator=g, device=device) * 2.4 - 1.2
+        _, _, pen, on_box = contact_candidates(state.bodies, state.terrain)
+        boxed += int((on_box & (pen > 0)).sum())
+        got = walker_step.step(state, a)
+        want = step_walker_plain(state, a)
+        for f in ('pos', 'angle', 'vel', 'angvel'):
+            err['state'] = max(err['state'], check_diff(
+                f'walker_step {f}', getattr(got[0].bodies, f),
+                getattr(want[0].bodies, f), WALKER_STEP_ATOL))
+        for f in ('joint_angle', 'joint_speed', 'prev_shaping'):
+            err['state'] = max(err['state'], check_diff(
+                f'walker_step {f}', getattr(got[0], f), getattr(want[0], f),
+                WALKER_STEP_ATOL))
+        for f in ('lower_contact', 'game_over', 'step_count'):
+            check_diff(f'walker_step {f}', getattr(got[0], f),
+                       getattr(want[0], f))
+        err['obs'] = max(err['obs'], check_diff(
+            'walker_step obs', got[1], want[1], WALKER_STEP_ATOL))
+        err['reward'] = max(err['reward'], check_diff(
+            'walker_step reward', got[2], want[2], WALKER_STEP_ATOL))
+        check_diff('walker_step done', got[3], want[3])
+        check_diff('walker_step finish', got[4], want[4])
+        contacts += int(got[0].lower_contact.sum())
+        dones += int(got[3].sum())
+        state = start.where(got[3], got[0])
+    if not (contacts and dones and boxed):
+        raise AssertionError(f'walker_step: {contacts} foot contacts, '
+                             f'{boxed} box contacts, {dones} ended episodes')
+    return {'n': n, 'steps': steps, 'max_abs_err': max(err.values()),
+            'errors': err, 'foot_contacts': contacts, 'box_contacts': boxed,
+            'episodes_ended': dones, 'atol': WALKER_STEP_ATOL}
+
+
+def gauss_inputs(R, device, seed=0):
+    """Kernel B7's Gaussian rows: means (R, 4), a shared log-std, actions
+    drawn from the Gaussian, a quarter of the rows with the ratio exactly 1
+    and the values equal to the old values."""
+    import torch
+    from dcd_isaac_tpu_torch.models.distributions import normal_log_prob
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)
+    mean, values = rn(R, 4), rn(R)
+    log_std = rn(4) * 0.3
+    actions = mean + rn(R, 4) * log_std.exp()
+    tie = torch.rand((R,), generator=g, device=device) < 0.25
+    old_lp = torch.where(tie, normal_log_prob(mean, log_std, actions),
+                         normal_log_prob(mean, log_std, actions)
+                         + rn(R) * 0.3)
+    old_v = torch.where(tie, values, values + rn(R) * 0.3)
+    return (mean, log_std, values, actions, old_lp, old_v, values + rn(R),
+            rn(R))
+
+
+def check_ppo_loss_gaussian(R, clip_value_loss, device) -> dict:
+    """Kernel B7's Gaussian branch against its twins: the four means within
+    1e-6 relative of the twin in float64; dmean, dlog_std and dvalues
+    within 1e-5 of the twin's largest entry plus 1e-5 relative (gradients
+    of a mean scale as 1/R); bit-identical over two runs."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels.ppo_loss import (
+        ppo_loss_gaussian, ppo_loss_gaussian_plain,
+        ppo_loss_gaussian_plain_backward,
+    )
+    rows = gauss_inputs(R, device)
+    cfg = (0.2, clip_value_loss, 0.5, 0.001)
+    upstream = torch.tensor([1.0, 0.0, 0.0, 0.0], device=device)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in rows[:3]]
+        out = ppo_loss_gaussian(*leaves, *rows[3:], *cfg)
+        runs.append((torch.stack(out).detach(),
+                     *torch.autograd.grad(out[0], leaves)))
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f'ppo_loss_gaussian R={R}: two runs differ')
+    want = torch.stack(ppo_loss_gaussian_plain(
+        *[t.double() for t in rows], *cfg))
+    torch.testing.assert_close(runs[0][0].double(), want, rtol=1e-6,
+                               atol=1e-9)
+    grads = {}
+    for name, a, b in zip(('dmean', 'dlog_std', 'dvalues'), runs[0][1:],
+                          ppo_loss_gaussian_plain_backward(upstream, *rows,
+                                                           *cfg)):
+        scale = float(b.abs().max())
+        if not scale > 0:
+            raise AssertionError(f'ppo_loss_gaussian: {name} of the twin 0')
+        torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=1e-5,
+                                   msg=lambda m: f'{name}: {m}')
+        e = float((a - b).abs().max())
+        grads[name] = {'max_abs_err': e, 'max_abs_ref': scale,
+                       'max_err_over_ref': e / scale}
+    return {'R': R, 'clip_value_loss': clip_value_loss,
+            'max_rel_err_means': float(((runs[0][0].double() - want).abs()
+                                        / want.abs()).max()),
+            'max_abs_err': max(g['max_abs_err'] for g in grads.values()),
+            'grads': grads, 'identical_runs': True}
+
+
+def walker_buffer(S, device, seed=0, filled=0.6):
+    """plr_buffer's fields with (9,) float32 walker levels (every fifth a
+    copy of another) in place of the grids."""
+    buf = plr_buffer(S, device, seed, filled)
+    levels = walker_levels(S, device, seed)
+    copies = list(range(0, S - 1, 5))
+    levels[copies] = levels[[c + 1 for c in copies]]
+    return buf.replace(levels=levels * buf.filled[:, None])
+
+
+def walker_staged(buf, N, device, seed=0):
+    """N staged walker levels: copies of three filled slots, a pair of equal
+    ones, the rest new; scores with ties, a fifth without a completed
+    episode (plr_staged's mix)."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 1)
+    r = lambda *s: torch.rand(s, generator=g, device=device)
+    levels = walker_levels(N, device, 50 + seed)
+    full = buf.filled.nonzero().flatten()
+    k = min(3, full.numel(), N - 2)
+    levels[:k] = buf.levels[full[:k]]
+    levels[-1] = levels[-2]
+    scores = torch.round(torch.randn((N,), generator=g, device=device) * 4) / 4
+    counts = torch.where(r(N) < 0.8, torch.floor(r(N) * 3) + 1, 0.0)
+    return (levels.contiguous(), scores, counts, r(N) < 0.8,
+            torch.floor(r(N) * 4 + 1).int())
+
+
+def check_plr_promote_float(device) -> dict:
+    """Kernel B8 (c) with float levels against ``promote_staged_plain``:
+    levels, ids, masks and counters exact, scores within 1e-6, at the
+    walker's S = 1000, N = 16 into part-filled and full buffers, staged
+    copies of buffer levels among them (the value-cast hash folds them)."""
+    from dcd_isaac_tpu_torch.kernels import plr as pk
+    from dcd_isaac_tpu_torch.level_replay import plr
+    out = []
+    for k, filled in enumerate((0.3, 1.0)):
+        cfg = plr.PLRConfig(capacity=WALKER_S, num_actors=WALKER_N,
+                            score_transform='rank', staleness_coef=0.5)
+        buf = walker_buffer(WALKER_S, device, k, filled)
+        args = walker_staged(buf, WALKER_N, device, k)
+        runs = [pk.promote(buf, cfg, *args) for _ in range(2)]
+        want = plr.promote_staged_plain(buf, cfg, *args)
+        err = 0.0
+        for f in pk.PROMOTE_FIELDS:
+            check_diff(f'promote float {f} second run', runs[0][f],
+                       runs[1][f])
+            err = max(err, check_diff(f'promote float {f}', runs[0][f],
+                                      getattr(want, f),
+                                      1e-6 if f == 'scores' else 0.0))
+        folded = int(((want.unseen == 0) & (buf.unseen > 0)
+                      & buf.filled).sum())
+        out.append({'filled': filled, 'max_abs_err': err,
+                    'accepted': int(want.next_id - buf.next_id),
+                    'duplicates_folded': folded})
+    if not sum(c['duplicates_folded'] for c in out):
+        raise AssertionError('promote float: no duplicate was folded')
+    return {'checks': out, 'max_abs_err': max(c['max_abs_err'] for c in out)}
+
+
+def check_walker_accel_against_cpu(device) -> dict:
+    """A small walker ACCEL sequence (N = 4, T = 16, S = 8, 8-step
+    episodes, VecNormalize): a generate cycle, then a replay cycle with its
+    edit cycle, on the card and on the CPU from the same weights, levels,
+    actions, replay seeds, edits and permutations.  Weight changes within
+    1e-5 (and a change beyond it), the buffers' levels, ids and masks exact
+    and floats within 1e-5, as ``accel_vs_cpu``."""
+    import dataclasses
+    import torch
+    from dcd_isaac_tpu_torch.arguments import parser
+    from dcd_isaac_tpu_torch.envs.walker.adversarial import (
+        AdversarialWalker, WalkerParams, mutate_draws,
+    )
+    from dcd_isaac_tpu_torch.runner.adversarial_runner import (
+        AdversarialRunner,
+    )
+    from dcd_isaac_tpu_torch.utils.make_agent import make_model
+    n, t, S = 4, 16, 8
+    args = parser.parse_args(BIPEDAL_ACCEL_ARGS + [
+        '--num_processes', str(n), '--num_steps', str(t),
+        '--num_mini_batch', '2', '--level_replay_seed_buffer_size', str(S)])
+    env = AdversarialWalker(WalkerParams(mode='easy', max_steps=8))
+    g = torch.Generator().manual_seed(0)
+    levels = walker_levels(n, 'cpu', 7)
+    levels[:, :8] = torch.tensor([0.3, 0, 0.8, 0, 0.4, 0, 0.4, 1])
+    acts = [torch.randn((t, n, 4), generator=g) for _ in range(3)]
+    perms = [torch.stack([torch.randperm(t * n, generator=g)
+                          for _ in range(args.ppo_epoch)]) for _ in range(3)]
+    u = torch.rand((n, mutate_draws(args.num_edits)), generator=g)
+    out = []
+    for dev in ('cpu', device):
+        net = make_model(args, env, generator=torch.Generator().manual_seed(1))
+        before = weights({'agent': net})
+        runner = AdversarialRunner(args, env, {'agent': net.to(dev)}, dev)
+        script = lambda a: (lambda o, k: a[k].to(dev))
+        runner.run(levels=levels.to(dev), replay=False,
+                   sample_action_fn=script(acts[0]),
+                   perms={'agent': perms[0].to(dev)})
+        filled = runner.plr_buffer.filled.nonzero().flatten().cpu()
+        seeds = filled[torch.arange(n) % filled.numel()]
+        resets = filled[(torch.arange(t * n) * 3) % filled.numel()].view(t, n)
+        stats = runner.run(
+            replay=True, replay_seeds=seeds.to(dev),
+            replay_reset_seeds=lambda k: resets[k].to(dev),
+            sample_action_fn=script(acts[1]), edit_coin=0.0,
+            mutation_draws=u.to(dev), edit_sample_fn=script(acts[2]),
+            perms={'agent': perms[1].to(dev),
+                   'agent_edit': perms[2].to(dev)})
+        buf = {f.name: getattr(runner.plr_buffer, f.name).cpu()
+               for f in dataclasses.fields(runner.plr_buffer)
+               if not f.name.startswith('tscl')}
+        out.append((stats, buf, weights({'agent': net}),
+                    [x.cpu() for x in runner.ret_rms]))
+    (cpu_stats, cpu_buf, cpu_after, cpu_rms), (
+        card_stats, card_buf, card_after, card_rms) = out
+    res = compare_weight_changes(before, cpu_after, card_after)['agent']
+    err = max(check_diff(f'card walker ACCEL buffer {f} against the CPU', a,
+                         cpu_buf[f], 1e-5 if a.is_floating_point()
+                         and f != 'levels' else 0.0)
+              for f, a in card_buf.items())
+    rms_err = max(check_diff('card VecNormalize statistics against the CPU',
+                             a, b, 1e-5, 1e-5)
+                  for a, b in zip(card_rms, cpu_rms))
+    if card_stats['total_num_edits'] != 1 or int(
+            card_buf['num_edits'].max()) < 1:
+        raise AssertionError('the walker ACCEL sequence made no edit')
+    return {**res, 'buffer_max_abs_err': err, 'ret_rms_max_abs_err': rms_err,
+            'filled': int(card_buf['filled'].sum()),
+            'max_score': [cpu_stats['max_score'], card_stats['max_score']]}
+
+
+def fill_walker_buffer(runner) -> float:
+    """Promote random levels of the runner's env (random scores, one
+    completed episode each) into its buffer until it is filled to rho, as
+    fill_plr_buffer does for MultiGrid; returns the proportion filled."""
+    import torch
+    from dcd_isaac_tpu_torch.level_replay import plr
+    cfg = runner.plr_cfg
+    n = runner.args.num_processes
+    g = torch.Generator(device=runner.device)
+    g.manual_seed(5)
+    while float(plr.proportion_filled(runner.plr_buffer)) < cfg.rho:
+        states, _ = runner.env.reset_random(n, g, runner.device)
+        runner.plr_buffer = plr.promote_staged(
+            runner.plr_buffer, cfg, runner.env.get_level(states),
+            torch.rand((n,), generator=g, device=runner.device),
+            torch.ones((n,), device=runner.device))
+    return float(plr.proportion_filled(runner.plr_buffer))
+
+
+def walker_step_work(state) -> tuple:
+    """(bytes, operations) that one B10 step of ``state`` must move and do,
+    counted from csrc/walker_step.cu's body for this state's data: an
+    add, product, quotient, comparison, min, max, sqrt, cos or sin is one
+    operation.  Bytes a walker: the state read (129 B), the action (16 B),
+    the heightfield (1600 B), the box count and its valid boxes (16 B
+    each), the outputs written (265 B: state, contact flags, joints, obs,
+    reward, done, finish); the 146-float constant table once.  Operations
+    a walker: cos and sin of 5 angles (10); for each of the 21 valid
+    contact candidates 72 (its world vertex 9, the heightfield lookup as a
+    binary search of ceil(log2 200) = 8 and 2 to clip, the segment's
+    height, normal and penetration 21, the choice of contact 4, its split,
+    arms, masses and bias 28) and 13 per valid box; the joints' set-up
+    4 x 56 and gravity 10; in each of the 40 sweeps the joints' motor,
+    limit and point-to-point impulses and their scatter (264), the body
+    sums' adds onto the velocities (30) and 52 for each active contact
+    (the normal and friction impulses 22 + 24, their adds into the body
+    sums 6); integration 30; for each of the 10 lidar rays 10, 27 per
+    heightfield segment (199) and 20 per valid box; the reward, flags and
+    observation 80."""
+    from dcd_isaac_tpu_torch.envs.walker.physics import contact_candidates
+    n = state.prev_shaping.shape[0]
+    nb = int(state.terrain.n_boxes.sum())
+    active = int((contact_candidates(state.bodies, state.terrain)[2] > 0)
+                 .sum())
+    nbytes = n * (129 + 16 + 1600 + 4 + 265) + 16 * nb + 146 * 4
+    ops = (n * (10 + 21 * 72 + 4 * 56 + 10 + 40 * (264 + 30) + 30
+                + 10 * (10 + 199 * 27) + 80)
+           + (21 * 13 + 10 * 20) * nb + 40 * 52 * active)
+    return nbytes, ops
+
+
+def walker_terrain_work(n) -> tuple:
+    """(bytes, operations) that B11 must move and do for n levels, counted
+    from csrc/walker_terrain.cu: 36 B read a level (8 params, the seed) and
+    2748 B written (xs 800, ys 800, 64 boxes 1024, n_boxes 4, bodies 120),
+    the 33-float constant table once; 57 operations a column (two seed
+    hashes of 17 integer operations, the grass step's 14, the next
+    counter's 4, x and the column's shift 2, the state's tests 3; the
+    sparse feature columns left out) and 50 for the set-up and placement."""
+    return n * (36 + 2748) + 33 * 4, n * (200 * 57 + 50)
+
+
+def time_walker_kernels(device) -> dict:
+    """Kernels B10, B11, B7's Gaussian branch and B8 (c) with float levels
+    at the walker path's shapes (N = 16; the student's minibatch R = 1024
+    and the whole rollout R = 32 768; S = 1000), with their twins and
+    bounds.  B10's and B11's work: ``walker_step_work``,
+    ``walker_terrain_work``.  Bytes: B7 reads the rows (mean, actions,
+    five scalars) and writes the means or the gradients; B8 (c) reads
+    every level for the hash and the eviction order's fields and writes
+    the slots this run's data accepts or folds.  Operations: B7 about 30 a
+    row and action."""
+    import math as m
+    import torch
+    from dcd_isaac_tpu_torch.envs.walker.adversarial import (
+        AdversarialWalker, WalkerParams,
+    )
+    from dcd_isaac_tpu_torch.envs.walker.env import (
+        place_walker, placement_draw, step_walker_plain,
+    )
+    from dcd_isaac_tpu_torch.envs.walker.terrain import (
+        generate_terrain, terrain_draws,
+    )
+    from dcd_isaac_tpu_torch.kernels import plr as pk
+    from dcd_isaac_tpu_torch.kernels import walker_step, walker_terrain
+    from types import SimpleNamespace
+    from dcd_isaac_tpu_torch.kernels.ppo_loss import (
+        PPOLossGaussian, ppo_loss_gaussian, ppo_loss_gaussian_plain,
+        ppo_loss_gaussian_plain_backward,
+    )
+    from dcd_isaac_tpu_torch.level_replay import plr
+    n = WALKER_N
+    env = AdversarialWalker(WalkerParams(mode='easy'))
+    levels = walker_levels(n, device, 8)
+    state, _ = env.reset_to_level(levels)
+    g = torch.Generator(device=device)
+    g.manual_seed(9)
+    a = torch.rand((n, 4), generator=g, device=device) * 2 - 1
+    for _ in range(30):     # to a state with feet on the ground
+        state = walker_step.step(state, a)[0]
+    out = {}
+    b = bound(*walker_step_work(state))
+    out['walker_step'] = {
+        'ms': graph_ms(lambda: walker_step.step(state, a), 50),
+        'plain_ms': device_ms(lambda: step_walker_plain(state, a), 1, 5),
+        'bound_ms': b[0], 'bound_by': b[1]}
+    params, seeds = levels[:, :8].contiguous(), levels[:, 8].int().contiguous()
+    b = bound(*walker_terrain_work(n))
+    out['walker_terrain'] = {
+        'ms': graph_ms(lambda: walker_terrain.generate(params, seeds), 50),
+        'plain_ms': device_ms(lambda: (
+            generate_terrain(params, terrain_draws(seeds)),
+            place_walker(placement_draw(seeds))), 1, 3),
+        'bound_ms': b[0], 'bound_by': b[1]}
+    for R in (1024, WALKER_N * WALKER_T):
+        rows = gauss_inputs(R, device)
+        cfg = (0.2, False, 0.5, 0.001)
+
+        # the backward alone: PPOLossGaussian.backward on the saved rows
+        ctx = SimpleNamespace(saved_tensors=rows, cfg=cfg)
+        ones = [torch.ones((), device=device)] * 4
+        bwd = lambda: PPOLossGaussian.backward(ctx, *ones)
+        plain_bwd = lambda: ppo_loss_gaussian_plain_backward(
+            torch.ones(4, device=device), *rows, *cfg)
+        # forward: mean, actions (8 floats) + 5 row scalars read, 4 written;
+        # backward: the same read, dmean and dvalues (5 floats) written
+        fb = bound(R * 4 * 13 + 16, 30 * 4 * R)
+        bb = bound(R * 4 * (13 + 5) + 32, 40 * 4 * R)
+        out[f'ppo_loss_gaussian_r{R}'] = {
+            'ms': graph_ms(lambda: ppo_loss_gaussian(
+                *rows, *cfg), 20),
+            'backward_ms': graph_ms(bwd, 20),
+            'plain_ms': device_ms(lambda: ppo_loss_gaussian_plain(
+                *rows, *cfg), 5, 10),
+            'plain_backward_ms': device_ms(plain_bwd, 5, 10),
+            'bound_ms': fb[0], 'bound_by': fb[1],
+            'backward_bound_ms': bb[0], 'backward_bound_by': bb[1]}
+    cfg = plr.PLRConfig(capacity=WALKER_S, num_actors=n,
+                        score_transform='rank', staleness_coef=0.5)
+    buf = walker_buffer(WALKER_S, device, 3, 1.0)
+    staged = walker_staged(buf, n, device, 3)
+    want = plr.promote_staged_plain(buf, cfg, *staged)
+    accepted = int(want.next_id - buf.next_id)
+    L = 9 * 4
+    b = bound(WALKER_S * (L + 13) + n * (L + 13) + accepted * (L + 26) + 8,
+              2 * 2 * WALKER_S * 9 + 2 * n * WALKER_S
+              + WALKER_S * m.log2(WALKER_S))
+    out['plr_promote_float'] = {
+        'slots_written': accepted,
+        'ms': graph_ms(lambda: pk.promote(buf, cfg, *staged), 20),
+        'plain_ms': device_ms(lambda: plr.promote_staged_plain(
+            buf, cfg, *staged), 1, 10),
+        'bound_ms': b[0], 'bound_by': b[1]}
+    return out
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1511,6 +2089,35 @@ def main() -> int:
     log('edit_vs_plain', t0, **edit_checks)
     t0 = time.perf_counter()
     log('accel_vs_cpu', t0, **check_accel_against_cpu(device))
+    t0 = time.perf_counter()
+    walker_checks = {
+        'walker_terrain': check_walker_terrain(device),
+        'walker_step': check_walker_step(64, 120, device),
+        'ppo_loss_gaussian': [check_ppo_loss_gaussian(r, cv, device)
+                              for r in (1024, WALKER_N * WALKER_T)
+                              for cv in (False, True)],
+        'plr_promote_float': check_plr_promote_float(device),
+        # GAE, B8's fold and weights and the normalisation at the walker
+        # path's shapes: T = 2048, N = 16, S = 1000, R = T·N
+        'gae': [check_gae(WALKER_T, WALKER_N, proper, device, gamma=0.99,
+                          gae_lambda=0.9, dense=True)
+                for proper in (True, False)],
+        'plr_fold': check_plr_fold(WALKER_T, WALKER_N, WALKER_S, device,
+                                   'positive_value_loss',
+                                   staleness_coef=0.5),
+        'plr_weights': check_plr_weights(
+            WALKER_S, device, score_transform='rank', temperature=0.1,
+            staleness_transform='power', staleness_coef=0.5),
+        'normalize_advantages': check_normalize(*[
+            gauss_inputs(WALKER_T * WALKER_N, device, seed=7)[k]
+            for k in (6, 2)])}
+    if not (walker_checks['plr_fold']['seeds_scored']
+            and walker_checks['plr_fold']['staged']):
+        raise AssertionError('walker B8 fold: scored or staged nothing')
+    torch.cuda.synchronize()
+    log('walker_vs_plain', t0, **walker_checks)
+    t0 = time.perf_counter()
+    log('walker_vs_cpu', t0, **check_walker_accel_against_cpu(device))
 
     from dcd_isaac_tpu_torch import train
     from dcd_isaac_tpu_torch.arguments import check_args, parser
@@ -1522,6 +2129,9 @@ def main() -> int:
         normalize_advantages, ppo_loss,
     )
     from dcd_isaac_tpu_torch.kernels.teacher_proj import teacher_proj
+    from dcd_isaac_tpu_torch.algos import rollout as rollout_mod
+    from dcd_isaac_tpu_torch.kernels import walker_step, walker_terrain
+    from dcd_isaac_tpu_torch.kernels.ppo_loss import ppo_loss_gaussian
     wrappers = {'multigrid_step': multigrid_step,
                 'multigrid_obs': multigrid_obs, 'gae': gae,
                 'multigrid_adversary_step': multigrid_adversary.step,
@@ -1532,7 +2142,10 @@ def main() -> int:
                 'plr_score_fold': pk.score_fold,
                 'plr_sample_weights': pk.sample_weights,
                 'plr_promote': pk.promote, 'multigrid_mutate': me.mutate,
-                'multigrid_reset_random': me.reset_random}
+                'multigrid_reset_random': me.reset_random,
+                'walker_step': walker_step.step,
+                'walker_terrain': walker_terrain.generate,
+                'ppo_loss_gaussian': ppo_loss_gaussian}
 
     def reset_counts():
         for w in wrappers.values():
@@ -1581,6 +2194,7 @@ def main() -> int:
     times.update(time_teacher_kernels(device))
     times.update(time_training_kernels(device))
     times.update(time_plr_kernels(device))
+    times.update(time_walker_kernels(device))
     log('kernel_times', t0, **times)
 
     # -- 4. the slices ------------------------------------------------------
@@ -1664,6 +2278,90 @@ def main() -> int:
             'multigrid_step': 2 * MAIN_T, 'multigrid_obs': 2, 'gae': 3,
             **update_launches((MAIN_T, MAIN_T, 27))}),
     }
+    def run_walker_cycle(runner, phase, phases, promotes=1, **kw):
+        """One cycle of a walker runner that runs ``phases`` student phases
+        (2 for a replay cycle with its edit cycle): its seconds, steps a
+        second (phases·N·T over the seconds, as PERF.md counts them),
+        kernel launches, host syncs and peak device memory; fails on a
+        non-finite stat or a kernel of the path that did not run
+        (``walker_need``)."""
+        reset_counts()
+        syncs = rollout_mod.make_student_rollout.host_syncs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = time.perf_counter()
+        stats = runner.run(**kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - c0
+        launches = read_counts()
+        bad = {k: v for k, v in stats.items()
+               if not math.isfinite(float(v))}
+        if bad:
+            raise AssertionError(f'{phase}: non-finite stats: {bad}')
+        check_counts(phase, launches, walker_need(phases, promotes))
+        return {'seconds': seconds,
+                'sps': phases * WALKER_N * WALKER_T / seconds,
+                'launches': launches,
+                'host_syncs': (rollout_mod.make_student_rollout.host_syncs
+                               - syncs),
+                'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+                'stats': stats}
+
+    def walker_need(phases, promotes=1):
+        """Launches a walker cycle of ``phases`` student phases needs at
+        least: B10 every step, B11 a reset each, GAE, B7's Gaussian branch
+        for 5 epochs x 32 minibatches (2 forward and 2 backward launches),
+        the advantage normalisation, the fold, and ``promotes``
+        promotions (hash and promotion each)."""
+        return {'walker_step': phases * WALKER_T,
+                'walker_terrain': phases, 'gae': phases,
+                'ppo_loss_gaussian': phases * 5 * 32 * 4,
+                'ppo_loss_gaussian_backward': phases * 5 * 32 * 2,
+                'normalize_advantages': 2 * phases,
+                'plr_score_fold': phases, 'plr_promote': 2 * promotes,
+                'plr_sample_weights': 1}
+
+    t0 = time.perf_counter()
+    runner = train.setup(check_args(parser.parse_args(BIPEDAL_ACCEL_ARGS)))
+    filled = fill_walker_buffer(runner)
+    fill_s = time.perf_counter() - t0
+    cycles = {
+        'accel_generate': run_walker_cycle(runner, 'accel_generate', 1,
+                                           replay=False),
+        'accel_replay_edit': run_walker_cycle(runner, 'accel_replay_edit',
+                                              2, replay=True)}
+    if cycles['accel_replay_edit']['stats']['total_num_edits'] != 1:
+        raise AssertionError('walker_cycles: the replay cycle made no edit')
+    robust = train.setup(check_args(parser.parse_args(
+        BIPEDAL_ROBUST_PLR_ARGS)))
+    fill_walker_buffer(robust)
+    cycles['robust_plr_replay'] = run_walker_cycle(
+        robust, 'robust_plr_replay', 1, promotes=0, replay=True)
+    for name, c in cycles.items():
+        replay = name != 'accel_generate'
+        if replay and not any(k.startswith('plr_') for k in c['stats']):
+            raise AssertionError(f'{name}: no plr_ env stats')
+    log('walker_cycles', t0, prefill_seconds=fill_s,
+        proportion_filled=filled, **cycles)
+    by_path['walker_accel'] = {
+        k: cycles['accel_generate']['launches'][k]
+        + cycles['accel_replay_edit']['launches'][k]
+        for k in cycles['accel_generate']['launches']}
+    # the training entry point: bipedal_accel's first three cycles (all
+    # generate cycles: the buffer fills to rho after ~32) and one cycle of
+    # each other configuration
+    walker_slice_need = {'walker_step': WALKER_T, 'walker_terrain': 1,
+                         'gae': 1, 'ppo_loss_gaussian': 5 * 32 * 4}
+    by_path['walker_accel_train'] = run_slice(
+        'bipedal_accel_train', BIPEDAL_ACCEL_ARGS + [
+            '--num_env_steps', str(3 * WALKER_N * WALKER_T)], 3,
+        walker_slice_need)
+    for name, argv in (('bipedal_robust_plr', BIPEDAL_ROBUST_PLR_ARGS),
+                       ('bipedal_dr', BIPEDAL_DR_ARGS),
+                       ('bipedal_accel_poet', BIPEDAL_POET_ARGS)):
+        by_path[name] = run_slice(name + '_train', argv + [
+            '--num_env_steps', str(WALKER_N * WALKER_T)], 1,
+            walker_slice_need)
     run_slice('bench_env_slice', BENCH_ENV_ARGS, 1, {
         'multigrid_adversary_step': 52, 'teacher_proj': 52 + 1 + 5,
         'multigrid_step': 2 * MAIN_T, 'gae': 3,
@@ -1673,22 +2371,47 @@ def main() -> int:
     # -- 5. kernels line and result ----------------------------------------
     mg_err = max(c['max_abs_err'] for c in checks['multigrid'])
     errs = {'multigrid_step': mg_err, 'multigrid_obs': mg_err,
-            'gae': max(c['max_abs_err'] for c in checks['gae']),
+            'gae': max(c['max_abs_err']
+                       for c in checks['gae'] + walker_checks['gae']),
             'multigrid_adversary_step': max(c['max_abs_err'] for c in adv),
             'multigrid_shortest_path': bfs['max_abs_err'],
             'teacher_proj': max(c['max_abs_err'] for c in proj),
             'lstm_seq': max(c['max_abs_err'] for c in checks['lstm_seq']),
             'ppo_loss': max(c['max_abs_err'] for c in checks['ppo_loss']),
-            'plr_score_fold': max(c['max_abs_err'] for c in plr_checks['fold']),
-            'plr_sample_weights': max(c['max_abs_err']
-                                      for c in plr_checks['weights']),
+            'plr_score_fold': max(
+                c['max_abs_err']
+                for c in plr_checks['fold'] + [walker_checks['plr_fold']]),
+            'plr_sample_weights': max(
+                c['max_abs_err'] for c in plr_checks['weights']
+                + [walker_checks['plr_weights']]),
             'plr_promote': max(c['max_abs_err'] for c in plr_checks['promote']),
             'multigrid_mutate': edit_checks['max_abs_err']['mutate'],
             'multigrid_reset_random':
-                edit_checks['max_abs_err']['reset_random']}
+                edit_checks['max_abs_err']['reset_random'],
+            'walker_step': walker_checks['walker_step']['max_abs_err'],
+            'walker_terrain': walker_checks['walker_terrain']['max_abs_err'],
+            'ppo_loss_gaussian': max(
+                c['max_abs_err'] for c in walker_checks['ppo_loss_gaussian'])}
+    errs['plr_promote'] = max(
+        errs['plr_promote'], walker_checks['plr_promote_float']['max_abs_err'])
+    norms = [{'R': c['R'], 'max_abs_err': c['normalize_max_abs_err']}
+             for c in checks['ppo_loss']]
+    norms.append(walker_checks['normalize_advantages'])
     grad_errs = {'ppo_loss': {'grad_errors': [
         {'R': c['R'], 'A': c['A'], **c['grads']}
-        for c in checks['ppo_loss']]}}
+        for c in checks['ppo_loss']],
+        'normalize_max_abs_err': max(c['max_abs_err'] for c in norms),
+        'normalize_rows': sorted({c['R'] for c in norms})},
+        'ppo_loss_gaussian': {'grad_errors': [
+            {'R': c['R'], **c['grads']}
+            for c in walker_checks['ppo_loss_gaussian']]}}
+    g = times.pop(f'ppo_loss_gaussian_r{WALKER_N * WALKER_T}')
+    times['ppo_loss_gaussian'] = times.pop('ppo_loss_gaussian_r1024')
+    times['ppo_loss_gaussian'].update(
+        {f'{k}_r{WALKER_N * WALKER_T}': v for k, v in g.items()})
+    times['plr_promote'].update(
+        {f'{k}_float_levels': v
+         for k, v in times.pop('plr_promote_float').items()})
     times['teacher_proj'] = times.pop(f'teacher_proj_b{MAIN_N}')
     big = times.pop(f'teacher_proj_b{27 * MAIN_N}')
     times['teacher_proj'].update({f'{k}_b{27 * MAIN_N}': v
@@ -1726,12 +2449,19 @@ def main() -> int:
         'multigrid_reset_random': (
             'dcd_isaac_tpu_torch/csrc/multigrid_edit.cu',
             'dcd_isaac_tpu/envs/multigrid/adversarial.py:206'),
+        'walker_step': ('dcd_isaac_tpu_torch/csrc/walker_step.cu',
+                        'dcd_isaac_tpu/envs/walker/env.py:132'),
+        'walker_terrain': ('dcd_isaac_tpu_torch/csrc/walker_terrain.cu',
+                           'dcd_isaac_tpu/envs/walker/terrain.py:36'),
+        'ppo_loss_gaussian': ('dcd_isaac_tpu_torch/csrc/ppo_loss.cu',
+                              'dcd_isaac_tpu/algos/ppo.py:82'),
     }
     # `launches` counts kernel launches, forward and backward (see
     # update_launches); B7's entry also carries the advantage
     # normalisation's launches and its gradients' error beside their scale.
     extra = {'lstm_seq': ('lstm_seq_backward',),
-             'ppo_loss': ('ppo_loss_backward', 'normalize_advantages')}
+             'ppo_loss': ('ppo_loss_backward', 'normalize_advantages'),
+             'ppo_loss_gaussian': ('ppo_loss_gaussian_backward',)}
     kernels = [{'name': name, 'route': 'cuda', 'source': src,
                 'replaces': rep,
                 'launches': sum(c[name] for c in by_path.values()),

@@ -1,13 +1,18 @@
-"""PPO, recurrent minibatch branch (port of dcd_isaac_tpu/algos/ppo.py).
+"""PPO (port of dcd_isaac_tpu/algos/ppo.py): the recurrent and the flat
+minibatch branches.
 
 The epoch × minibatch loop is a Python loop over permutation indices with
 sequential optimizer steps, as in the reference: each minibatch sees the
 parameters the previous one produced.  Recurrent minibatches group whole
-envs and replay the BPTT chunk through the model's ``sequence``.  The
+envs and replay the BPTT chunk through the model's ``sequence``; a
+non-recurrent model (the walker's MLP) takes the flat branch (:189-236):
+each epoch permutes the T·N rows and cuts them into minibatches.  The
 model's parameters and the optimizer's moments are updated in place.
 
 The loss after the model's forward and the advantage normalisation are
-kernel B7 (``kernels/ppo_loss.py``); the model's BPTT runs kernel B3.
+kernel B7 (``kernels/ppo_loss.py``: the categorical branch for logits,
+the diagonal-Gaussian branch for a ``dist_type == 'normal'`` model); the
+model's BPTT runs kernel B3.
 
 The optimizer is optax's ``chain(clip_by_global_norm, adam)`` written out:
 PyTorch's ``clip_grad_norm_`` divides by ``norm + 1e-6`` and its Adam puts
@@ -22,7 +27,9 @@ from typing import List, Optional
 
 import torch
 
-from ..kernels.ppo_loss import normalize_advantages, ppo_loss
+from ..kernels.ppo_loss import (
+    normalize_advantages, ppo_loss, ppo_loss_gaussian,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,10 +103,16 @@ def init_agent_state(model: torch.nn.Module, cfg: PPOConfig
 def loss_fn(model, cfg: PPOConfig, obs, init_carry, masks_pre, actions,
             old_log_probs, old_values, returns, advs):
     """Clipped-surrogate PPO loss (ppo.py:82-114) → (loss, (vloss, aloss,
-    entropy)): the model's BPTT forward, then kernel B7."""
-    logits, values, _ = model.sequence(obs, init_carry, masks_pre)
+    entropy)): the model's (BPTT) forward, then kernel B7."""
+    out, values, _ = model.sequence(obs, init_carry, masks_pre)
+    if model.dist_type == 'normal':
+        loss, vloss, action_loss, entropy = ppo_loss_gaussian(
+            out['mean'], out['log_std'], values, actions, old_log_probs,
+            old_values, returns, advs, cfg.clip_param, cfg.clip_value_loss,
+            cfg.value_loss_coef, cfg.entropy_coef)
+        return loss, (vloss, action_loss, entropy)
     loss, vloss, action_loss, entropy = ppo_loss(
-        logits, values, actions, old_log_probs, old_values, returns, advs,
+        out, values, actions, old_log_probs, old_values, returns, advs,
         cfg.clip_param, cfg.clip_value_loss, cfg.value_loss_coef,
         cfg.entropy_coef)
     return loss, (vloss, action_loss, entropy)
@@ -109,42 +122,56 @@ def make_ppo_update(model, cfg: PPOConfig, num_actors: int):
     """Build ``update(train_state, rollout, returns, init_carry, generator,
     discard_grad, perms=None) → stats``.
 
-    ``perms`` ((ppo_epoch, N) env permutations) may be injected; otherwise
+    ``perms`` ((ppo_epoch, N) env permutations, or (ppo_epoch, T·N) row
+    permutations for a non-recurrent model) may be injected; otherwise
     each epoch draws ``torch.randperm`` from ``generator``.  With
     ``discard_grad`` the gradients are computed and the step is skipped.
     """
-    if not model.is_recurrent:
-        raise NotImplementedError(
-            'the flat (non-recurrent) PPO branch is not ported yet')
-    if num_actors % cfg.num_mini_batch:
+    recurrent = model.is_recurrent
+    if recurrent and num_actors % cfg.num_mini_batch:
         raise ValueError(f'num_processes={num_actors} is not divisible by '
                          f'num_mini_batch={cfg.num_mini_batch}')
-    envs_per_mb = num_actors // cfg.num_mini_batch
 
     def update(train_state: AgentTrainState, rollout, returns, init_carry,
                generator: torch.Generator = None, discard_grad: bool = False,
                perms: torch.Tensor = None):
         old_values = rollout.values
         advantages = normalize_advantages(returns, old_values)
-        N = returns.shape[1]
+        T, N = returns.shape
+        rows = N if recurrent else T * N
+        if rows % cfg.num_mini_batch:
+            raise ValueError(f'{rows} rows are not divisible by '
+                             f'num_mini_batch={cfg.num_mini_batch}')
         if perms is None:
             perms = torch.stack([
-                torch.randperm(N, generator=generator,
+                torch.randperm(rows, generator=generator,
                                device=returns.device)
                 for _ in range(cfg.ppo_epoch)])
         mb_idx = perms.reshape(cfg.ppo_epoch * cfg.num_mini_batch,
-                               envs_per_mb).to(returns.device)
+                               rows // cfg.num_mini_batch).to(returns.device)
+        if recurrent:    # minibatches of whole envs, (T, envs) slices
+            pick = lambda x, idx: x[:, idx]
+            mb_carry = lambda idx: tuple(c[idx] for c in init_carry)
+        else:            # minibatches of rows of the flattened (T·N) batch
+            flat = lambda x: x.reshape(T * N, *x.shape[2:])
+            rollout = dataclasses.replace(
+                rollout, obs={k: flat(v) for k, v in rollout.obs.items()},
+                **{f: flat(getattr(rollout, f)) for f in (
+                    'masks_pre', 'actions', 'log_probs', 'values')})
+            returns, advantages = flat(returns), flat(advantages)
+            old_values = rollout.values
+            pick = lambda x, idx: x[idx]
+            mb_carry = lambda idx: ()
 
         params = [p for p in train_state.model.parameters()]
         auxes, gnorms = [], []
         for idx in mb_idx:
-            mb_obs = {k: v[:, idx] for k, v in rollout.obs.items()}
-            mb_carry = tuple(c[idx] for c in init_carry)
+            mb_obs = {k: pick(v, idx) for k, v in rollout.obs.items()}
             loss, aux = loss_fn(
-                train_state.model, cfg, mb_obs, mb_carry,
-                rollout.masks_pre[:, idx], rollout.actions[:, idx],
-                rollout.log_probs[:, idx], old_values[:, idx],
-                returns[:, idx], advantages[:, idx])
+                train_state.model, cfg, mb_obs, mb_carry(idx),
+                pick(rollout.masks_pre, idx), pick(rollout.actions, idx),
+                pick(rollout.log_probs, idx), pick(old_values, idx),
+                pick(returns, idx), pick(advantages, idx))
             grads = torch.autograd.grad(loss, params)
             if discard_grad:
                 gnorm = global_norm(grads)

@@ -1,10 +1,15 @@
 """Student and teacher rollouts (port of dcd_isaac_tpu/algos/rollout.py).
 
 A Python loop over T steps of a batch of N envs replaces the JAX
-``lax.scan``: policy forward, env step (kernel 1), the rollout-final forced
-done and cliffhanger, the truncation-value forward, VecMonitor episode
-accounting and the auto-reset select all run on the envs' device.  The
-only host syncs are the "any slot finished" checks of a stochastic reset.
+``lax.scan``: policy forward, env step (kernel B1 or B10), the
+rollout-final forced done and cliffhanger, the truncation-value forward,
+VecMonitor episode accounting, VecNormalize's return normalisation (with
+``normalize_returns_gamma``; its running statistics are carried in
+``StepCarry.ret_rms`` across cycles) and the auto-reset select all run on
+the envs' device.  The policy is a categorical over logits (MultiGrid) or
+a diagonal Gaussian (the walker, ``model.dist_type == 'normal'``).  The
+only host syncs are the "any slot finished" checks of a stochastic reset,
+one a step on the card, counted in ``make_student_rollout.host_syncs``.
 
 Auto-reset is pluggable through ``reset_fn(t, env_state, level_seeds) ->
 (env_state, obs, level_seeds)``, called for the whole batch and selected
@@ -25,7 +30,9 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from ..models.distributions import categorical_log_prob, categorical_sample
+from ..models.distributions import (
+    categorical_log_prob, categorical_sample, normal_log_prob, normal_sample,
+)
 from .storage import Rollout
 
 
@@ -41,6 +48,10 @@ class StepCarry:
     epi_count: torch.Tensor     # (N,) completed episodes this rollout
     ret_sum: torch.Tensor       # (N,) sum of completed episode returns
     ret_max: torch.Tensor       # (N,) max completed episode return
+    # VecNormalize (vec_normalize.py:37-53): the discounted-return
+    # accumulator (N,) and the returns' running mean, var, count (); None
+    # without return normalisation
+    ret_rms: Optional[tuple] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +62,7 @@ class RolloutConfig:
     # record the policy's log-softmax at every step (PLR's entropy and
     # margin strategies read it; one more launch a step)
     record_log_dists: bool = False
+    normalize_returns_gamma: Optional[float] = None  # VecNormalize's gamma
 
 
 def _select(mask: torch.Tensor, new: dict, old: dict) -> dict:
@@ -67,18 +79,43 @@ def _stack(steps) -> Rollout:
     return Rollout(**stacked)
 
 
+def _normalize_returns(ret_rms, reward, real_done, gamma):
+    """VecNormalize's step (JAX rollout.py:157-176): the returns' running
+    variance updated with this step's discounted returns, the reward
+    divided by its std; the accumulator reset where an episode ended."""
+    ret_accum, mean, var, count = ret_rms
+    ret_accum = ret_accum * gamma + reward
+    b_mean = ret_accum.mean()
+    b_var = ret_accum.var(correction=0)
+    bc = ret_accum.shape[0]
+    delta = b_mean - mean
+    tot = count + bc
+    new_mean = mean + delta * bc / tot
+    m2 = var * count + b_var * bc + delta ** 2 * count * bc / tot
+    new_var = m2 / tot
+    reward = reward / torch.sqrt(new_var + 1e-8)
+    ret_accum = torch.where(real_done, torch.zeros_like(ret_accum),
+                            ret_accum)
+    return (ret_accum, new_mean, new_var, tot), reward
+
+
 def make_student_rollout(env, model, cfg: RolloutConfig,
                          reset_fn: Callable = None,
                          sample_action_fn: Callable = None):
     """Build ``rollout(carry, generator) → (final, Rollout, next_value,
-    stats)``."""
+    stats)``.  ``sample_action_fn(out, t)`` gets the policy's output
+    (logits, or the Gaussian's ``{'mean', 'log_std'}``)."""
     T = cfg.num_steps
+    normal = model.dist_type == 'normal'
 
     def rollout(carry: StepCarry, generator: torch.Generator = None):
-        if sample_action_fn is None:
-            sample = lambda logits, t: categorical_sample(logits, generator)
-        else:
+        if sample_action_fn is not None:
             sample = sample_action_fn
+        elif normal:
+            sample = lambda out, t: normal_sample(
+                out['mean'], out['log_std'], generator)
+        else:
+            sample = lambda logits, t: categorical_sample(logits, generator)
         n = carry.mask.shape[0]
         dev = carry.mask.device
         init_state, init_obs, init_seeds = (
@@ -89,7 +126,11 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
                 logits, value, rnn_carry = model(
                     carry.obs, carry.rnn_carry, carry.mask)
                 action = sample(logits, t)
-                log_prob = categorical_log_prob(logits, action)
+                if normal:
+                    log_prob = normal_log_prob(logits['mean'],
+                                               logits['log_std'], action)
+                else:
+                    log_prob = categorical_log_prob(logits, action)
 
                 env_state, next_obs, reward, done, info = env.step(
                     carry.env_state, action)
@@ -121,6 +162,11 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
                 ret_max = torch.where(
                     real_done, torch.maximum(carry.ret_max, epi_return),
                     carry.ret_max)
+                ret_rms = carry.ret_rms
+                if cfg.normalize_returns_gamma is not None:
+                    ret_rms, reward = _normalize_returns(
+                        ret_rms, reward, real_done,
+                        cfg.normalize_returns_gamma)
                 if cfg.clip_reward:
                     reward = reward.clamp(-cfg.clip_reward, cfg.clip_reward)
 
@@ -128,10 +174,11 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
                 # levels, so it runs only on steps where a slot finished.
                 if reset_fn is None:
                     reset = (init_state, init_obs, init_seeds)
-                elif bool(real_done.any()):
-                    reset = reset_fn(t, env_state, carry.level_seeds)
                 else:
-                    reset = None
+                    if real_done.is_cuda:
+                        make_student_rollout.host_syncs += 1
+                    reset = (reset_fn(t, env_state, carry.level_seeds)
+                             if bool(real_done.any()) else None)
                 next_seeds = carry.level_seeds
                 if reset is not None:
                     env_state = reset[0].where(real_done, env_state)
@@ -145,13 +192,15 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
                     trunc_values=trunc_value, cliffhangers=cliffhanger,
                     level_seeds=carry.level_seeds)
                 if cfg.record_log_dists:
-                    step['log_dists'] = torch.log_softmax(logits, -1)
+                    step['log_dists'] = (log_prob if normal else
+                                         torch.log_softmax(logits, -1))
                 steps.append(step)
                 carry = StepCarry(
                     env_state=env_state, obs=next_obs, rnn_carry=rnn_carry,
                     mask=1.0 - done.float(), level_seeds=next_seeds,
                     epi_return=torch.where(real_done, zero, epi_return),
-                    epi_count=epi_count, ret_sum=ret_sum, ret_max=ret_max)
+                    epi_count=epi_count, ret_sum=ret_sum, ret_max=ret_max,
+                    ret_rms=ret_rms)
 
             # Bootstrap value of the final obs (reference next_value).
             _, next_value, _ = model(carry.obs, carry.rnn_carry, carry.mask)
@@ -169,10 +218,15 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
     return rollout
 
 
-def initial_step_carry(model, env_state, obs, level_seeds=None) -> StepCarry:
-    """Fresh StepCarry for a batch of already-reset envs."""
-    n = obs['image'].shape[0]
-    dev = obs['image'].device
+make_student_rollout.host_syncs = 0
+
+
+def initial_step_carry(model, env_state, obs, level_seeds=None,
+                       ret_rms=None) -> StepCarry:
+    """Fresh StepCarry for a batch of already-reset envs; ``ret_rms`` the
+    VecNormalize statistics carried over from the last rollout."""
+    first = next(iter(obs.values()))
+    n, dev = first.shape[0], first.device
     if level_seeds is None:
         level_seeds = torch.full((n,), -1, dtype=torch.int32, device=dev)
     zeros = torch.zeros((n,), device=dev)
@@ -186,6 +240,7 @@ def initial_step_carry(model, env_state, obs, level_seeds=None) -> StepCarry:
         epi_count=torch.zeros((n,), dtype=torch.int32, device=dev),
         ret_sum=zeros,
         ret_max=torch.full((n,), float('-inf'), device=dev),
+        ret_rms=ret_rms,
     )
 
 

@@ -9,6 +9,10 @@ has the same names at other widths: the conv-128 kernel, a scalar embed of
 are the conv features in (h, w, c) order, then the scalar embed, then
 ``random_z``, the order of the port's embed and of kernel B4.
 
+``from_flax_walker`` does the same for the walker student
+(``WalkerStudentPolicy``): its four trunk layers, value head, Gaussian
+mean and ``log_std``.
+
 ``from_jax_plr`` takes the fields of a JAX ``PLRBuffer`` (as numpy arrays,
 an object with those attributes or a dict) and returns the port's
 ``PLRBuffer`` with the same contents on a device.
@@ -69,6 +73,17 @@ def from_flax(params_np: dict) -> dict:
             _dense(sd, f'{side}_trunk.{2 * i}', p[f'{side}_fc{i}'])
             i += 1
         _dense(sd, f'{side}_head', p[f'{side}_head'])
+    return sd
+
+
+def from_flax_walker(params_np: dict) -> dict:
+    """flax ``WalkerStudentPolicy`` params → the port's state dict."""
+    p = params_np.get('params', params_np)
+    sd = {}
+    for name in ('actor1', 'actor2', 'critic1', 'critic2', 'critic_head'):
+        _dense(sd, name, p[name])
+    _dense(sd, 'dist.mean', p['dist']['mean'])
+    sd['dist.log_std'] = _t(p['dist']['log_std'])
     return sd
 
 

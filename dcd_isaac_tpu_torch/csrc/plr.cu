@@ -30,7 +30,9 @@
 // sums its strided entries, then the partial sums fold pairwise.
 //
 // The promotion.  A block per level hashes it into two 32-bit lanes
-// (sum of b_j (j M + 1) mod 2^32; plr.py:566-577).  The promotion block
+// (sum of b_j (j M + 1) mod 2^32; plr.py:566-577); b_j is a byte of a
+// MultiGrid level or a float32 element of a walker level truncated toward
+// zero, as JAX's astype(uint32) casts it by value.  The promotion block
 // then finds each valid staged level's duplicate (the lowest filled slot
 // with both lanes equal; the highest staged index wins a slot), folds the
 // duplicates, computes the weights of the folded buffer, orders the empty
@@ -387,16 +389,27 @@ __global__ void score_fold_kernel(
   }
 }
 
-// Two 32-bit hash lanes of each level: levels a[0..na) then b[0..nb).
+// Element j of a level as the hash reads it: a byte, or a float32 value
+// truncated toward zero (JAX's astype(uint32); the twin's int64 cast).
+__device__ __forceinline__ uint32_t level_elem(const uint8_t* p, int j,
+                                              int is_float) {
+  if (!is_float) return p[j];
+  return (uint32_t)(long long)reinterpret_cast<const float*>(p)[j];
+}
+
+// Two 32-bit hash lanes of each level: levels a[0..na) then b[0..nb), L
+// elements each (bytes, or float32 values with is_float).
 __global__ void level_hash_kernel(const uint8_t* a, int na, const uint8_t* b,
-                                  int L, uint32_t m1, uint32_t m2,
-                                  uint32_t* hash) {
+                                  int L, int is_float, uint32_t m1,
+                                  uint32_t m2, uint32_t* hash) {
   __shared__ uint32_t r1[kHashThreads], r2[kHashThreads];
   const int lv = blockIdx.x, tid = threadIdx.x;
-  const uint8_t* p = lv < na ? a + (size_t)lv * L : b + (size_t)(lv - na) * L;
+  const size_t bytes = (size_t)L * (is_float ? 4 : 1);
+  const uint8_t* p = lv < na ? a + (size_t)lv * bytes
+                             : b + (size_t)(lv - na) * bytes;
   uint32_t s1 = 0u, s2 = 0u;
   for (int j = tid; j < L; j += kHashThreads) {
-    const uint32_t v = p[j];
+    const uint32_t v = level_elem(p, j, is_float);
     s1 += v * ((uint32_t)j * m1 + 1u);
     s2 += v * ((uint32_t)j * m2 + 1u);
   }
@@ -416,7 +429,7 @@ __global__ void level_hash_kernel(const uint8_t* a, int na, const uint8_t* b,
 }
 
 struct PromoteParams {
-  int S, N, L, dedup, reject, replay_support;
+  int S, N, L, dedup, reject, replay_support;   // L: bytes a level
   float alpha, one_minus_alpha;
   WeightParams wp;
 };
@@ -613,7 +626,8 @@ extern "C" int dcd_plr_sample_weights(
   return (int)cudaGetLastError();
 }
 
-// The buffer arrays are updated in place.  hash: 2 (S + N) uint32;
+// The buffer arrays are updated in place; a level is L bytes, or with
+// is_float L float32 values (the walker's).  hash: 2 (S + N) uint32;
 // fws: S + 2 max(S, N) floats; iws: max(S, N) + 2 S + 4 N ints.  With
 // dedup off the hash kernel does not run.
 extern "C" int dcd_plr_promote(
@@ -622,21 +636,22 @@ extern "C" int dcd_plr_promote(
     void* next_id, void* sample_count, const void* st_levels,
     const void* st_scores, const void* st_counts, const void* st_solvable,
     const void* st_edits, void* hash, void* fws, void* iws, int S, int N,
-    int L, int dedup, int reject, int replay_support, int transform, float p,
+    int L, int is_float, int dedup, int reject, int replay_support,
+    int transform, float p,
     int stale_on, int stale_transform, float stale_p, float e, float coef,
     float one_minus_coef, float alpha, float one_minus_alpha, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dedup) {
     level_hash_kernel<<<S + N, kHashThreads, 0, st>>>(
-        (const uint8_t*)levels, S, (const uint8_t*)st_levels, L, 0x9E3779B1u,
-        0x85EBCA77u, (uint32_t*)hash);
+        (const uint8_t*)levels, S, (const uint8_t*)st_levels, L, is_float,
+        0x9E3779B1u, 0x85EBCA77u, (uint32_t*)hash);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   PromoteParams pp;
   pp.S = S;
   pp.N = N;
-  pp.L = L;
+  pp.L = L * (is_float ? 4 : 1);
   pp.dedup = dedup;
   pp.reject = reject;
   pp.replay_support = replay_support;

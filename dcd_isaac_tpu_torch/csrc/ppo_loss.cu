@@ -28,6 +28,10 @@
 // in which every CTA folds the same partials in the same order and writes
 // (x - mean) / (std + 1e-5) with the population std.
 //
+// The diagonal-Gaussian branch (the walker student's 4 torques: a mean per
+// row and one shared log-std) has its own rows and backward kernels below,
+// with a fixed-order fold for the log-std's gradient, a sum over the rows.
+//
 // Bound on the H100, by bytes: at R = 2 097 152 and A = 7 the forward reads
 // about 117 MB (35 us at 3.35 TB/s), the backward reads that and writes
 // dlogits and dvalues (about 185 MB, 55 us).
@@ -262,6 +266,162 @@ __global__ void __launch_bounds__(kThreads) adv_normalize_kernel(
   }
 }
 
+
+// ---- the diagonal-Gaussian branch (the walker student) ---------------------
+// Per row r with A actions, mean m (R, A) and the shared log-std ls (A,):
+//   lp = sum_j (-(a_j - m_j)^2 / (2 exp(2 ls_j)) - ls_j - c),
+//   c = log(2 pi) / 2;  entropy_r = sum_j (ls_j + log(2 pi e) / 2),
+// the same for every row.  The rest of the loss is the categorical branch's.
+// Backward: dmean_j = g_lp (a_j - m_j) / var_j and, summed over the rows in
+// per-CTA double partials folded in a fixed order, dls_j = sum_r g_lp
+// ((a_j - m_j)^2 / var_j - 1) + c_e (the entropy's gradient is 1 a dim).
+
+constexpr int kMaxGaussA = 8;
+
+struct GaussRow {
+  float lp, ratio, surr1, surr2;
+};
+
+__device__ __forceinline__ void gauss_row(const float* __restrict__ mean,
+                                          const float* __restrict__ act,
+                                          const float* var, const float* ls,
+                                          float c, float old_lp, float adv,
+                                          int A, float lo, float hi,
+                                          GaussRow& row) {
+  float lp = 0.0f;
+  for (int j = 0; j < A; ++j) {
+    const float d = __fsub_rn(act[j], mean[j]);
+    const float t = __fsub_rn(
+        __fsub_rn(__fdiv_rn(-__fmul_rn(d, d), __fmul_rn(2.0f, var[j])), ls[j]),
+        c);
+    lp = j == 0 ? t : __fadd_rn(lp, t);
+  }
+  row.lp = lp;
+  row.ratio = expf(__fsub_rn(lp, old_lp));
+  row.surr1 = __fmul_rn(row.ratio, adv);
+  row.surr2 = __fmul_rn(fminf(fmaxf(row.ratio, lo), hi), adv);
+}
+
+__device__ __forceinline__ float value_term(float v, float old_v, float ret,
+                                            float clip, int clip_value_loss) {
+  if (clip_value_loss) {
+    const float clipped = old_v + fminf(fmaxf(v - old_v, -clip), clip);
+    const float d1 = v - ret, d2 = clipped - ret;
+    return fmaxf(d1 * d1, d2 * d2);
+  }
+  const float d = fabsf(v - ret);
+  return d < 1.0f ? 0.5f * d * d : d - 0.5f;
+}
+
+__global__ void __launch_bounds__(kThreads) ppo_gauss_rows_kernel(
+    const float* __restrict__ mean, const float* __restrict__ log_std,
+    const float* __restrict__ values, const float* __restrict__ actions,
+    const float* __restrict__ old_lp, const float* __restrict__ old_v,
+    const float* __restrict__ returns, const float* __restrict__ advs,
+    double* __restrict__ partials, int R, int A, float clip, float lo,
+    float hi, int clip_value_loss, float c, float c_ent) {
+  __shared__ double buf[3][kThreads];
+  float ls[kMaxGaussA], var[kMaxGaussA];
+  float ent = 0.0f;
+  for (int j = 0; j < A; ++j) {
+    ls[j] = log_std[j];
+    var[j] = expf(__fmul_rn(2.0f, ls[j]));
+    const float e = __fadd_rn(ls[j], c_ent);
+    ent = j == 0 ? e : __fadd_rn(ent, e);
+  }
+  double sum[3] = {0.0, 0.0, 0.0};
+  for (int r = blockIdx.x * kThreads + threadIdx.x; r < R;
+       r += gridDim.x * kThreads) {
+    GaussRow row;
+    gauss_row(mean + (size_t)r * A, actions + (size_t)r * A, var, ls, c,
+              old_lp[r], advs[r], A, lo, hi, row);
+    sum[0] += (double)fminf(row.surr1, row.surr2);
+    sum[1] += (double)value_term(values[r], old_v[r], returns[r], clip,
+                                 clip_value_loss);
+    sum[2] += (double)ent;
+  }
+  block_sum<3>(sum, buf);
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 3; ++k) partials[blockIdx.x * 3 + k] = sum[k];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) ppo_gauss_backward_kernel(
+    const float* __restrict__ mean, const float* __restrict__ log_std,
+    const float* __restrict__ values, const float* __restrict__ actions,
+    const float* __restrict__ old_lp, const float* __restrict__ old_v,
+    const float* __restrict__ returns, const float* __restrict__ advs,
+    const float* __restrict__ grad_out, float* __restrict__ dmean,
+    float* __restrict__ dvalues, double* __restrict__ partials, int R, int A,
+    float clip, float lo, float hi, int clip_value_loss,
+    float value_loss_coef, float c) {
+  __shared__ double buf[kMaxGaussA][kThreads];
+  float ls[kMaxGaussA], var[kMaxGaussA];
+  for (int j = 0; j < A; ++j) {
+    ls[j] = log_std[j];
+    var[j] = expf(__fmul_rn(2.0f, ls[j]));
+  }
+  const float inv_r = 1.0f / (float)R;
+  const float g_loss = grad_out[0];
+  const float c_v = g_loss * value_loss_coef + grad_out[1];
+  const float c_a = g_loss + grad_out[2];
+  double dls[kMaxGaussA];
+  for (int j = 0; j < kMaxGaussA; ++j) dls[j] = 0.0;
+  for (int r = blockIdx.x * kThreads + threadIdx.x; r < R;
+       r += gridDim.x * kThreads) {
+    const float adv = advs[r];
+    const float* m = mean + (size_t)r * A;
+    const float* a = actions + (size_t)r * A;
+    GaussRow row;
+    gauss_row(m, a, var, ls, c, old_lp[r], adv, A, lo, hi, row);
+    const float w1 = row.surr1 < row.surr2 ? 1.0f
+                     : row.surr1 > row.surr2 ? 0.0f : 0.5f;
+    const bool in_clip = row.ratio >= lo && row.ratio <= hi;
+    const float g_lp = -c_a * inv_r *
+                       (w1 * adv + (1.0f - w1) * (in_clip ? adv : 0.0f)) *
+                       row.ratio;
+    for (int j = 0; j < A; ++j) {
+      const float d = a[j] - m[j];
+      dmean[(size_t)r * A + j] = g_lp * d / var[j];
+      dls[j] += (double)(g_lp * (d * d / var[j] - 1.0f));
+    }
+    const float v = values[r], ret = returns[r];
+    float dv;
+    if (clip_value_loss) {
+      const float d = v - old_v[r];
+      const float clipped = old_v[r] + fminf(fmaxf(d, -clip), clip);
+      const float d1 = v - ret, d2 = clipped - ret;
+      const float q1 = d1 * d1, q2 = d2 * d2;
+      const float w = q1 > q2 ? 1.0f : q1 < q2 ? 0.0f : 0.5f;
+      const float pass = (d >= -clip && d <= clip) ? 1.0f : 0.0f;
+      dv = c_v * 0.5f * inv_r * (w * 2.0f * d1 + (1.0f - w) * 2.0f * d2 * pass);
+    } else {
+      const float d1 = v - ret;
+      const float d = fabsf(d1);
+      const float sign = d1 > 0.0f ? 1.0f : d1 < 0.0f ? -1.0f : 0.0f;
+      dv = c_v * inv_r * (d < 1.0f ? d : 1.0f) * sign;
+    }
+    dvalues[r] = dv;
+  }
+  block_sum<kMaxGaussA>(dls, buf);
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < A; ++j) partials[blockIdx.x * kMaxGaussA + j] = dls[j];
+  }
+}
+
+// dlog_std_j = the rows' partials folded in a fixed order + c_e.
+__global__ void __launch_bounds__(kThreads) ppo_gauss_dls_kernel(
+    const double* __restrict__ partials, int n, const float* __restrict__ grad_out,
+    float* __restrict__ dlog_std, int A, float entropy_coef) {
+  __shared__ double buf[kMaxGaussA][kThreads];
+  double sum[kMaxGaussA];
+  fold_partials<kMaxGaussA>(partials, n, sum, buf);
+  if (threadIdx.x == 0) {
+    const float c_e = grad_out[3] - grad_out[0] * entropy_coef;
+    for (int j = 0; j < A; ++j) dlog_std[j] = (float)sum[j] + c_e;
+  }
+}
+
 }  // namespace
 
 // Doubles of workspace a call with R rows needs (3 per partial).
@@ -320,5 +480,55 @@ extern "C" int dcd_normalize_advantages(const void* returns,
   adv_normalize_kernel<<<n, kThreads, 0, s>>>(
       (const float*)returns, (const float*)values, (const double*)partials,
       n, (float*)out, R);
+  return (int)cudaGetLastError();
+}
+
+// ---- the diagonal-Gaussian branch ------------------------------------------
+
+extern "C" int dcd_ppo_gauss_workspace(int R) {
+  return kMaxGaussA * reduce_blocks(R);
+}
+
+// c = log(2 pi) / 2 and c_ent = log(2 pi e) / 2, rounded by the caller.
+extern "C" int dcd_ppo_gauss_forward(
+    const void* mean, const void* log_std, const void* values,
+    const void* actions, const void* old_lp, const void* old_v,
+    const void* returns, const void* advs, void* partials, void* out, int R,
+    int A, float clip, float lo, float hi, int clip_value_loss,
+    float value_loss_coef, float entropy_coef, float c, float c_ent,
+    void* stream) {
+  if (R <= 0 || A <= 0 || A > kMaxGaussA) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n = reduce_blocks(R);
+  ppo_gauss_rows_kernel<<<n, kThreads, 0, s>>>(
+      (const float*)mean, (const float*)log_std, (const float*)values,
+      (const float*)actions, (const float*)old_lp, (const float*)old_v,
+      (const float*)returns, (const float*)advs, (double*)partials, R, A,
+      clip, lo, hi, clip_value_loss, c, c_ent);
+  ppo_loss_final_kernel<<<1, kThreads, 0, s>>>(
+      (const double*)partials, n, (float*)out, R, clip_value_loss,
+      value_loss_coef, entropy_coef);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dcd_ppo_gauss_backward(
+    const void* mean, const void* log_std, const void* values,
+    const void* actions, const void* old_lp, const void* old_v,
+    const void* returns, const void* advs, const void* grad_out, void* dmean,
+    void* dlog_std, void* dvalues, void* partials, int R, int A, float clip,
+    float lo, float hi, int clip_value_loss, float value_loss_coef,
+    float entropy_coef, float c, void* stream) {
+  if (R <= 0 || A <= 0 || A > kMaxGaussA) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n = reduce_blocks(R);
+  ppo_gauss_backward_kernel<<<n, kThreads, 0, s>>>(
+      (const float*)mean, (const float*)log_std, (const float*)values,
+      (const float*)actions, (const float*)old_lp, (const float*)old_v,
+      (const float*)returns, (const float*)advs, (const float*)grad_out,
+      (float*)dmean, (float*)dvalues, (double*)partials, R, A, clip, lo, hi,
+      clip_value_loss, value_loss_coef, c);
+  ppo_gauss_dls_kernel<<<1, kThreads, 0, s>>>(
+      (const double*)partials, n, (const float*)grad_out, (float*)dlog_std,
+      A, entropy_coef);
   return (int)cudaGetLastError();
 }

@@ -28,6 +28,9 @@ from .core import (
 class AdversarialMultiGrid:
     """Functional UED MultiGrid env over a batch of N levels."""
 
+    adversary_discrete = True
+    level_dtype = torch.uint8
+
     def __init__(self, params: Optional[MultiGridParams] = None, **kwargs):
         self.params = params or MultiGridParams(**kwargs)
 
@@ -190,3 +193,24 @@ class AdversarialMultiGrid:
         state, obs, reward, done, truncated = step_agent(
             state, action, self.params)
         return state, obs, reward, done, {'truncated': truncated}
+
+    def solvable(self, state: MultiGridState) -> torch.Tensor:
+        """(N,) bool: a path leads to the goal (the BFS's flag)."""
+        return state.passable
+
+    def env_stats(self, state: MultiGridState,
+                  max_return: torch.Tensor) -> dict:
+        """The levels' stats for the log (JAX runner
+        ``_get_env_stats_multigrid``); a level counts as solved where a
+        student's best return is positive."""
+        solved = max_return > 0
+        spl = state.shortest_path_length.float()
+        return {
+            'num_blocks': state.n_clutter_placed.float().mean(),
+            'passable_ratio': state.passable.float().mean(),
+            'shortest_path_length': spl.mean(),
+            'solved_path_length': torch.where(
+                solved.any(),
+                (spl * solved).sum() / solved.sum().clamp(min=1),
+                torch.zeros_like(spl[0])),
+        }

@@ -1,9 +1,11 @@
-"""Environment names (the MultiGrid ones of dcd_isaac_tpu/envs/registry.py)."""
+"""Environment names of the port (dcd_isaac_tpu/envs/registry.py): the
+MultiGrid ones and the walker's three training names."""
 
 from __future__ import annotations
 
 from .multigrid.adversarial import AdversarialMultiGrid
 from .multigrid.core import MultiGridParams
+from .walker.adversarial import make_walker_env
 
 _MG = {
     'MultiGrid-Adversarial-v0': dict(
@@ -48,14 +50,26 @@ _MG = {
 }
 
 
-def make_env(env_name: str) -> AdversarialMultiGrid:
-    """env id → batched MultiGrid env; the other families wait."""
+# the walker's training names (train_scripts/grid_configs/bipedal/)
+WALKER_ENVS = ('BipedalWalker-Adversarial-v0',
+               'BipedalWalker-Adversarial-Easy-v0',
+               'BipedalWalker-POET-Easy-v0')
+
+
+def make_env(env_name: str):
+    """env id → batched MultiGrid or walker env; the walker's eval levels
+    and CarRacing wait."""
     if env_name in _MG:
         return AdversarialMultiGrid(MultiGridParams(**_MG[env_name]))
-    if env_name.startswith(('BipedalWalker', 'CarRacing')):
+    if env_name in WALKER_ENVS:
+        return make_walker_env(env_name)
+    if env_name.startswith('BipedalWalker'):
         raise NotImplementedError(
-            f'{env_name}: the walker and CarRacing families are not ported '
-            'yet')
+            f'{env_name}: the walker\'s evaluation levels are not ported yet '
+            '(the entry-points slice, ROADMAP queue A.4)')
+    if env_name.startswith('CarRacing'):
+        raise NotImplementedError(
+            f'{env_name}: the CarRacing family is not ported yet')
     raise ValueError(f'Unknown env {env_name}')
 
 

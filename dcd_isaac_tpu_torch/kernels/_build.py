@@ -53,10 +53,19 @@ SIGNATURES = {
     'dcd_plr_score_fold': [_P] * 14 + [_I] * 7 + [_F] * 5 + [_P],
     'dcd_plr_sample_weights': [_P] * 6 + [_I, _I, _F, _I, _I] + [_F] * 4
                               + [_P],
-    'dcd_plr_promote': [_P] * 19 + [_I] * 6 + [_I, _F, _I, _I] + [_F] * 6
+    'dcd_plr_promote': [_P] * 19 + [_I] * 7 + [_I, _F, _I, _I] + [_F] * 6
                        + [_P],
     'dcd_multigrid_mutate': [_P] * 8 + [_I] * 5 + [_P],
     'dcd_multigrid_reset_random': [_P] * 6 + [_I] * 6 + [_P],
+    'dcd_ppo_gauss_workspace': [_I],
+    'dcd_ppo_gauss_forward': [_P] * 10 + [_I, _I, _F, _F, _F, _I, _F, _F,
+                                          _F, _F, _P],
+    'dcd_ppo_gauss_backward': [_P] * 13 + [_I, _I, _F, _F, _F, _I, _F, _F,
+                                           _F, _P],
+    'dcd_walker_consts_count': [],
+    'dcd_walker_step': [_P] * 27 + [_I, _I, _P],
+    'dcd_walker_terrain_consts_count': [],
+    'dcd_walker_terrain': [_P] * 11 + [_I, _P],
 }
 
 

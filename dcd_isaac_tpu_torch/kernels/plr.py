@@ -163,13 +163,18 @@ PROMOTE_FIELDS = ('levels', 'scores', 'unseen', 'filled', 'solvable',
 def promote(buf, cfg, staged_levels, staged_scores, staged_counts,
             staged_solvable, staged_num_edits) -> dict:
     """promote_staged → the new buffer fields (a dict), new tensors; two
-    launches (hash, promotion), one with dedup off."""
+    launches (hash, promotion), one with dedup off.  Levels are uint8
+    (MultiGrid) or float32 (the walker's (9,) params and seed), hashed by
+    value truncated toward zero, as ``level_hash`` does."""
     S, N = buf.capacity, staged_scores.shape[0]
     dev = buf.scores.device
     _on_card('scores', buf.scores)
     level_shape = tuple(buf.levels.shape[1:])
+    ltype = buf.levels.dtype
+    if ltype not in (torch.uint8, torch.float32):
+        raise TypeError(f'levels: uint8 or float32, got {ltype}')
     for name, t, dtype, shape in (
-            ('levels', buf.levels, torch.uint8, (S, *level_shape)),
+            ('levels', buf.levels, ltype, (S, *level_shape)),
             ('scores', buf.scores, torch.float32, (S,)),
             ('unseen', buf.unseen, torch.float32, (S,)),
             ('filled', buf.filled, torch.bool, (S,)),
@@ -180,7 +185,7 @@ def promote(buf, cfg, staged_levels, staged_scores, staged_counts,
             ('slot_ids', buf.slot_ids, torch.int32, (S,)),
             ('next_id', buf.next_id, torch.int32, ()),
             ('sample_count', buf.sample_count, torch.float32, ()),
-            ('staged_levels', staged_levels, torch.uint8, (N, *level_shape)),
+            ('staged_levels', staged_levels, ltype, (N, *level_shape)),
             ('staged_scores', staged_scores, torch.float32, (N,)),
             ('staged_counts', staged_counts, torch.float32, (N,)),
             ('staged_solvable', staged_solvable, torch.bool, (N,)),
@@ -204,7 +209,8 @@ def promote(buf, cfg, staged_levels, staged_scores, staged_counts,
         staged_levels.data_ptr(), staged_scores.data_ptr(),
         staged_counts.data_ptr(), staged_solvable.data_ptr(),
         staged_num_edits.data_ptr(), hash_.data_ptr(), fws.data_ptr(),
-        iws.data_ptr(), S, N, L, int(cfg.dedup), int(cfg.reject_unsolvable),
+        iws.data_ptr(), S, N, L, int(ltype == torch.float32), int(cfg.dedup),
+        int(cfg.reject_unsolvable),
         int(replay_support), *wargs, ctypes.c_float(a),
         ctypes.c_float(1 - a), _stream(dev))
     _build.check(rc, 'plr.promote')

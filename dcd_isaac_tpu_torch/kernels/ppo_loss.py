@@ -18,6 +18,13 @@ tie sends half the gradient to each side; ``clamp`` passes its bounds).
 CPU tensors take the plain twins (:func:`ppo_loss_plain`, autograd's
 arithmetic, and :func:`ppo_loss_plain_backward`, the kernel's backward in
 tensor ops); CUDA tensors launch the kernels or raise.
+
+:class:`PPOLossGaussian` (:func:`ppo_loss_gaussian`) is the same loss for
+the walker's diagonal Gaussian (``is_discrete`` false in JAX's loss_fn):
+the log-prob of (R, A) actions from an (R, A) mean and one (A,) log-std,
+the entropy from the log-std, and gradients to the mean, the log-std (a
+sum over the rows, folded in a fixed order) and the values.  Its twins are
+:func:`ppo_loss_gaussian_plain` and :func:`ppo_loss_gaussian_plain_backward`.
 """
 
 from __future__ import annotations
@@ -26,7 +33,11 @@ import ctypes
 
 import torch
 
-from ..models.distributions import categorical_entropy, categorical_log_prob
+import math
+
+from ..models.distributions import (
+    categorical_entropy, categorical_log_prob, normal_entropy, normal_log_prob,
+)
 from . import _build
 
 
@@ -40,9 +51,15 @@ def ppo_loss_plain(logits, values, actions, old_log_probs, old_values,
                    value_loss_coef: float, entropy_coef: float):
     """(loss, vloss, aloss, entropy) as ``algos/ppo.py:loss_fn`` computes
     them after the model (JAX ppo.py:99-114)."""
-    new_log_probs = categorical_log_prob(logits, actions)
-    entropy = categorical_entropy(logits).mean()
+    return _ppo_terms(categorical_log_prob(logits, actions),
+                      categorical_entropy(logits).mean(), values,
+                      old_log_probs, old_values, returns, advs, clip_param,
+                      clip_value_loss, value_loss_coef, entropy_coef)
 
+
+def _ppo_terms(new_log_probs, entropy, values, old_log_probs, old_values,
+               returns, advs, clip_param, clip_value_loss, value_loss_coef,
+               entropy_coef):
     ratio = torch.exp(new_log_probs - old_log_probs)
     surr1 = ratio * advs
     surr2 = ratio.clamp(1.0 - clip_param, 1.0 + clip_param) * advs
@@ -60,9 +77,52 @@ def ppo_loss_plain(logits, values, actions, old_log_probs, old_values,
     return loss, vloss, action_loss, entropy
 
 
+def ppo_loss_gaussian_plain(mean, log_std, values, actions, old_log_probs,
+                            old_values, returns, advs, clip_param: float,
+                            clip_value_loss: bool, value_loss_coef: float,
+                            entropy_coef: float):
+    """(loss, vloss, aloss, entropy) of the diagonal Gaussian (JAX
+    ppo.py:99-114 with the walker's ``log_prob_entropy``)."""
+    ls = log_std.expand_as(mean)
+    return _ppo_terms(normal_log_prob(mean, ls, actions),
+                      normal_entropy(ls).mean(), values, old_log_probs,
+                      old_values, returns, advs, clip_param,
+                      clip_value_loss, value_loss_coef, entropy_coef)
+
+
 def _tie_weight(a, b):
     """d min(a, b) / da: 1 where a < b, 0 where a > b, 1/2 at a tie."""
     return torch.where(a < b, 1.0, torch.where(a > b, 0.0, 0.5))
+
+
+def _g_log_prob(grad_out, new_log_probs, old_log_probs, advs, clip_param):
+    """d loss / d new_log_probs of the clipped surrogate (autograd's tie and
+    clamp-bound rules)."""
+    R = advs.shape[0]
+    c_a = grad_out[0] + grad_out[2]
+    ratio = torch.exp(new_log_probs - old_log_probs)
+    lo, hi = 1.0 - clip_param, 1.0 + clip_param
+    surr1 = ratio * advs
+    surr2 = ratio.clamp(lo, hi) * advs
+    w1 = _tie_weight(surr1, surr2)
+    in_clip = ((ratio >= lo) & (ratio <= hi)).float()
+    return (-c_a / R) * (w1 * advs + (1.0 - w1) * in_clip * advs) * ratio
+
+
+def _d_values(grad_out, values, old_values, returns, clip_param,
+              clip_value_loss, value_loss_coef):
+    R = values.shape[0]
+    c_v = grad_out[0] * value_loss_coef + grad_out[1]
+    if clip_value_loss:
+        d = values - old_values
+        clipped = old_values + d.clamp(-clip_param, clip_param)
+        d1, d2 = values - returns, clipped - returns
+        w = 1.0 - _tie_weight(d1 * d1, d2 * d2)     # d max / d first
+        passed = ((d >= -clip_param) & (d <= clip_param)).float()
+        return (c_v * 0.5 / R) * (w * 2.0 * d1
+                                  + (1.0 - w) * 2.0 * d2 * passed)
+    d1 = values - returns
+    return (c_v / R) * d1.abs().clamp(max=1.0) * d1.sign()
 
 
 def ppo_loss_plain_backward(grad_out, logits, values, actions, old_log_probs,
@@ -72,36 +132,38 @@ def ppo_loss_plain_backward(grad_out, logits, values, actions, old_log_probs,
     """The kernel's backward in tensor ops: the upstream gradients
     ``grad_out`` (4,) of (loss, vloss, aloss, entropy) → (dlogits, dvalues)."""
     R = values.shape[0]
-    g_loss, g_v, g_a, g_e = grad_out.unbind()
-    c_v = g_loss * value_loss_coef + g_v
-    c_a = g_loss + g_a
-    c_e = g_e - g_loss * entropy_coef
+    c_e = grad_out[3] - grad_out[0] * entropy_coef
     logp = torch.log_softmax(logits, -1)
     p = logp.exp()
     entropy = -(p * logp).sum(-1)
     onehot = torch.nn.functional.one_hot(actions.long(), logits.shape[-1])
-    ratio = torch.exp(logp.gather(-1, actions.long()[:, None])[:, 0]
-                      - old_log_probs)
-    lo, hi = 1.0 - clip_param, 1.0 + clip_param
-    surr1 = ratio * advs
-    surr2 = ratio.clamp(lo, hi) * advs
-    w1 = _tie_weight(surr1, surr2)
-    in_clip = ((ratio >= lo) & (ratio <= hi)).float()
-    g_lp = (-c_a / R) * (w1 * advs + (1.0 - w1) * in_clip * advs) * ratio
+    g_lp = _g_log_prob(grad_out,
+                       logp.gather(-1, actions.long()[:, None])[:, 0],
+                       old_log_probs, advs, clip_param)
     dlogits = (g_lp[:, None] * (onehot - p)
                - (c_e / R) * (p * (logp + entropy[:, None])))
-    if clip_value_loss:
-        d = values - old_values
-        clipped = old_values + d.clamp(-clip_param, clip_param)
-        d1, d2 = values - returns, clipped - returns
-        w = 1.0 - _tie_weight(d1 * d1, d2 * d2)     # d max / d first
-        passed = ((d >= -clip_param) & (d <= clip_param)).float()
-        dvalues = (c_v * 0.5 / R) * (w * 2.0 * d1
-                                     + (1.0 - w) * 2.0 * d2 * passed)
-    else:
-        d1 = values - returns
-        dvalues = (c_v / R) * d1.abs().clamp(max=1.0) * d1.sign()
-    return dlogits, dvalues
+    return dlogits, _d_values(grad_out, values, old_values, returns,
+                              clip_param, clip_value_loss, value_loss_coef)
+
+
+def ppo_loss_gaussian_plain_backward(grad_out, mean, log_std, values,
+                                     actions, old_log_probs, old_values,
+                                     returns, advs, clip_param: float,
+                                     clip_value_loss: bool,
+                                     value_loss_coef: float,
+                                     entropy_coef: float):
+    """The Gaussian kernel's backward in tensor ops: ``grad_out`` (4,) →
+    (dmean (R, A), dlog_std (A,), dvalues (R,))."""
+    var = torch.exp(2 * log_std)
+    d = actions - mean
+    lp = normal_log_prob(mean, log_std.expand_as(mean), actions)
+    g_lp = _g_log_prob(grad_out, lp, old_log_probs, advs, clip_param)
+    dmean = g_lp[:, None] * d / var
+    c_e = grad_out[3] - grad_out[0] * entropy_coef
+    dlog_std = (g_lp[:, None] * (d * d / var - 1.0)).double().sum(0) + c_e
+    return dmean, dlog_std.float(), _d_values(
+        grad_out, values, old_values, returns, clip_param, clip_value_loss,
+        value_loss_coef)
 
 
 def _flags(clip_param, clip_value_loss, value_loss_coef, entropy_coef):
@@ -204,6 +266,99 @@ def ppo_loss(logits, values, actions, old_log_probs, old_values, returns,
 
 ppo_loss.launches = 0
 ppo_loss.backward_launches = 0
+
+
+# log(2 pi) / 2 and log(2 pi e) / 2 as float32 (the twins' constants)
+_HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
+_HALF_LOG_2PIE = 0.5 * math.log(2 * math.pi * math.e)
+
+
+class PPOLossGaussian(torch.autograd.Function):
+    """``apply(mean (R, A), log_std (A,), values, actions (R, A),
+    old_log_probs, old_values, returns, advs (R,), clip_param,
+    clip_value_loss, value_loss_coef, entropy_coef)`` → (loss, vloss,
+    aloss, entropy)."""
+
+    @staticmethod
+    def forward(ctx, mean, log_std, values, actions, old_log_probs,
+                old_values, returns, advs, *cfg):
+        rows = (mean, log_std, values, actions, old_log_probs, old_values,
+                returns, advs)
+        ctx.save_for_backward(*rows)
+        ctx.cfg = cfg
+        if mean.device.type == 'cpu':
+            return ppo_loss_gaussian_plain(*rows, *cfg)
+        R, A = mean.shape
+        lib = _build.library()
+        partials = torch.empty(lib.dcd_ppo_gauss_workspace(R),
+                               dtype=torch.float64, device=mean.device)
+        out = torch.empty(4, dtype=torch.float32, device=mean.device)
+        rc = lib.dcd_ppo_gauss_forward(
+            *(t.data_ptr() for t in rows), partials.data_ptr(),
+            out.data_ptr(), R, A, *_flags(*cfg),
+            ctypes.c_float(_HALF_LOG_2PI), ctypes.c_float(_HALF_LOG_2PIE),
+            torch.cuda.current_stream(mean.device).cuda_stream)
+        _build.check(rc, 'ppo_loss_gaussian forward')
+        ppo_loss_gaussian.launches += 2     # the rows, then the fold
+        return out.unbind()
+
+    @staticmethod
+    def backward(ctx, g_loss, g_v, g_a, g_e):
+        grad_out = torch.stack([g_loss, g_v, g_a, g_e]).float().contiguous()
+        rows = ctx.saved_tensors
+        mean = rows[0]
+        if mean.device.type == 'cpu':
+            dmean, dls, dvalues = ppo_loss_gaussian_plain_backward(
+                grad_out, *rows, *ctx.cfg)
+        else:
+            R, A = mean.shape
+            lib = _build.library()
+            partials = torch.empty(lib.dcd_ppo_gauss_workspace(R),
+                                   dtype=torch.float64, device=mean.device)
+            dmean = torch.empty_like(mean)
+            dls = torch.empty_like(rows[1])
+            dvalues = torch.empty_like(rows[2])
+            rc = lib.dcd_ppo_gauss_backward(
+                *(t.data_ptr() for t in rows), grad_out.data_ptr(),
+                dmean.data_ptr(), dls.data_ptr(), dvalues.data_ptr(),
+                partials.data_ptr(), R, A, *_flags(*ctx.cfg),
+                ctypes.c_float(_HALF_LOG_2PI),
+                torch.cuda.current_stream(mean.device).cuda_stream)
+            _build.check(rc, 'ppo_loss_gaussian backward')
+            ppo_loss_gaussian.launches += 2     # the rows, then the fold
+            ppo_loss_gaussian.backward_launches += 2
+        return (dmean, dls, dvalues) + (None,) * (5 + len(ctx.cfg))
+
+
+def ppo_loss_gaussian(mean, log_std, values, actions, old_log_probs,
+                      old_values, returns, advs, clip_param: float,
+                      clip_value_loss: bool, value_loss_coef: float,
+                      entropy_coef: float):
+    """(loss, vloss, aloss, entropy) of a mean (..., A), a log-std (A,),
+    float32 actions (..., A) and values, old log-probs, old values, returns
+    and advantages of the leading shape; differentiable in the mean, the
+    log-std and the values.  CPU tensors take the twins, CUDA tensors
+    launch the kernels (``ppo_loss_gaussian.launches``: 2 a forward pass,
+    2 a backward pass) or raise; A is at most 8."""
+    A = mean.shape[-1]
+    R = mean.numel() // A
+    dev = mean.device
+    if A > 8:
+        raise ValueError(f'ppo_loss_gaussian: at most 8 actions, got {A}')
+    rows = [mean.reshape(R, A), log_std, values.reshape(R),
+            actions.reshape(R, A)] + [
+        t.reshape(R) for t in (old_log_probs, old_values, returns, advs)]
+    shapes = ((R, A), (A,), (R,), (R, A), (R,), (R,), (R,), (R,))
+    names = ('mean', 'log_std', 'values', 'actions', 'old_log_probs',
+             'old_values', 'returns', 'advs')
+    for name, t, shape in zip(names, rows, shapes):
+        _build.check_tensor(name, t, torch.float32, shape, dev)
+    return PPOLossGaussian.apply(*rows, clip_param, clip_value_loss,
+                                 value_loss_coef, entropy_coef)
+
+
+ppo_loss_gaussian.launches = 0
+ppo_loss_gaussian.backward_launches = 0
 
 
 def normalize_advantages_plain(returns, values):

@@ -76,7 +76,7 @@ class PLRConfig:
 @dataclasses.dataclass(frozen=True)
 class PLRBuffer:
     """The level buffer, every field a tensor on one device."""
-    levels: torch.Tensor           # (S, *level_shape) uint8
+    levels: torch.Tensor           # (S, *level_shape) uint8, or float32
     scores: torch.Tensor           # (S,) float32
     staleness: torch.Tensor        # (S,) float32
     unseen: torch.Tensor           # (S,) float32, 1.0 = never scored
@@ -532,7 +532,9 @@ def update_with_rollout(buf: PLRBuffer, cfg: PLRConfig, rollout, returns,
 
 def level_hash(levels: torch.Tensor, mult: int) -> torch.Tensor:
     """One 32-bit lane of the content hash of each level (plr.py:566-572):
-    sum over bytes b_j of b_j * (j * mult + 1), modulo 2^32, in int64."""
+    sum over its elements b_j of b_j * (j * mult + 1), modulo 2^32, in
+    int64.  A float level's elements (the walker's) are truncated toward
+    zero first, as JAX's ``astype(uint32)`` casts them by value."""
     flat = levels.reshape(levels.shape[0], -1).long()
     j = torch.arange(flat.shape[1], dtype=torch.long, device=flat.device)
     k = (j * mult + 1) & _U32

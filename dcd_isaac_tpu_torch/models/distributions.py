@@ -1,10 +1,13 @@
-"""Categorical policy helpers (dcd_isaac_tpu/models/distributions.py:17-37).
+"""Policy distributions (dcd_isaac_tpu/models/distributions.py): the
+categorical of the MultiGrid models and the walker's diagonal Gaussian.
 
 Sampling takes an explicit ``torch.Generator``: its stream differs from
 ``jax.random``'s, so tests inject actions instead of sharing seeds.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -31,3 +34,25 @@ def categorical_entropy(logits: torch.Tensor) -> torch.Tensor:
 
 def categorical_mode(logits: torch.Tensor) -> torch.Tensor:
     return logits.argmax(-1)
+
+
+# --------------------------- Diagonal Gaussian ------------------------------
+# (dcd_isaac_tpu/models/distributions.py:39-53); ``log_std`` broadcasts
+# against ``mean``.
+
+def normal_sample(mean: torch.Tensor, log_std: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+    return mean + torch.exp(log_std) * noise
+
+
+def normal_log_prob(mean: torch.Tensor, log_std: torch.Tensor,
+                    actions: torch.Tensor) -> torch.Tensor:
+    var = torch.exp(2 * log_std)
+    lp = (-((actions - mean) ** 2) / (2 * var) - log_std
+          - 0.5 * math.log(2 * math.pi))
+    return lp.sum(-1)
+
+
+def normal_entropy(log_std: torch.Tensor) -> torch.Tensor:
+    return (log_std + 0.5 * math.log(2 * math.pi * math.e)).sum(-1)

@@ -33,6 +33,8 @@ HOIST_MIN_CONV_DIM = 4096
 
 
 class MultigridNetwork(nn.Module):
+    dist_type = 'categorical'
+
     def __init__(self, num_actions: int, scalar_dim: int = 4,
                  scalar_fc: int = 5, conv_filters: int = 16,
                  conv_kernel: int = 3, view_size: int = 5,

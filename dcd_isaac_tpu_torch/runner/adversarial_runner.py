@@ -10,8 +10,10 @@ host loop that picks them (:924-984).
     ``--no_exploratory_grad_updates``, ACCEL with ``--use_editor``): each
     cycle a coin on the buffer (``sample_replay_decision``) picks a
     generate cycle, whose N levels a uniform-random teacher builds
-    (``_random_design``, kernel B5) and which are staged, scored and
-    promoted into the buffer (PLR⊥ discards that cycle's gradients), or a
+    (``_random_design``, kernel B5; the walker, whose teacher is not
+    discrete, draws them with ``reset_random``) and which are staged,
+    scored and promoted into the buffer (PLR⊥ discards that cycle's
+    gradients), or a
     replay cycle, which draws N levels from the buffer by their weights
     and again on every finished episode, and scores them.  With the
     editor, a second coin may follow a replay cycle with an edit cycle:
@@ -25,9 +27,11 @@ host loop that picks them (:924-984).
     teacher's return (the regret, or minus the protagonist's best return)
     becomes the last reward of its rollout, and the teacher takes its own
     PPO update after both students.
-Each student phase runs GAE and the recurrent PPO update.  The cycle runs
-eagerly on the runner's device; ``run`` reads the coins and the stats back
-to the host.
+Each student phase runs GAE and the PPO update (recurrent, or flat for
+the walker's MLP).  With ``--normalize_returns`` the student's rewards go
+through VecNormalize, whose running statistics (``ret_rms``) carry across
+the generate, replay and edit cycles.  The cycle runs eagerly on the
+runner's device; ``run`` reads the coins and the stats back to the host.
 """
 
 from __future__ import annotations
@@ -92,7 +96,7 @@ class AdversarialRunner:
             raise NotImplementedError(
                 f'ued_algo={algo!r} is not ported yet; it waits '
                 f'for {_WAITS.get(algo, "a later slice")}')
-        for flag in ('normalize_returns', 'use_popart', 'adv_use_popart'):
+        for flag in ('use_popart', 'adv_use_popart'):
             if getattr(args, flag):
                 raise NotImplementedError(f'--{flag} is not ported yet')
         if args.use_plr and algo != 'domain_randomization':
@@ -152,13 +156,23 @@ class AdversarialRunner:
                 seed_buffer_priority=args.level_replay_seed_buffer_priority,
                 gamma=args.gamma,
                 reject_unsolvable=args.reject_unsolvable_seeds)
-            self.plr_buffer = plr_lib.init_plr(self.plr_cfg, env.level_shape,
-                                               self.device)
+            self.plr_buffer = plr_lib.init_plr(
+                self.plr_cfg, env.level_shape, self.device,
+                level_dtype=env.level_dtype)
         self._student_ro_cfg = RolloutConfig(
             num_steps=args.num_steps, clip_reward=args.clip_reward,
             handle_timelimits=args.handle_timelimits,
             record_log_dists=self.use_plr and args.level_replay_strategy in (
-                'policy_entropy', 'least_confidence', 'min_margin'))
+                'policy_entropy', 'least_confidence', 'min_margin'),
+            normalize_returns_gamma=0.99 if args.normalize_returns else None)
+        # VecNormalize's statistics (JAX runner :311-315): the return
+        # accumulator (N,), and the returns' mean, var and count
+        self.ret_rms = None
+        if args.normalize_returns:
+            f = lambda v: torch.tensor(v, dtype=torch.float32,
+                                       device=self.device)
+            self.ret_rms = (torch.zeros(N, device=self.device), f(0.0),
+                            f(1.0), f(1e-4))
 
         # One train state, update and generator per role.
         roles = ['agent']
@@ -220,7 +234,8 @@ class AdversarialRunner:
             return rollout(env_states, obs, gen)
         if levels is not None:
             env_states, _ = self.env.reset_to_level(levels.to(self.device))
-        elif self.use_plr and not self.args.use_reset_random_dr:
+        elif (self.use_plr and not self.args.use_reset_random_dr
+              and self.env.adversary_discrete):
             env_states = self._random_design(**(design or {}))
         else:
             env_states, _ = self.env.reset_random(
@@ -277,8 +292,10 @@ class AdversarialRunner:
         model = self.models[role]
         gen = self.generators[role]
         env_states, obs = self.env.reset_agent(env_states)
-        carry = initial_step_carry(model, env_states, obs, level_seeds)
-        _, steps, next_value, ro_stats = rollout_fn(carry, gen)
+        carry = initial_step_carry(model, env_states, obs, level_seeds,
+                                   self.ret_rms)
+        final, steps, next_value, ro_stats = rollout_fn(carry, gen)
+        self.ret_rms = final.ret_rms
         returns = compute_gae(
             steps, next_value, args.gamma, args.gae_lambda,
             use_proper_time_limits=args.handle_timelimits)
@@ -381,19 +398,8 @@ class AdversarialRunner:
                 'adversary_env_value_loss': t_stats['value_loss'],
                 'adversary_env_dist_entropy': t_stats['dist_entropy'],
             })
-        env_stats = None
-        if env_states is not None:
-            solved = max_r > 0
-            spl = env_states.shortest_path_length.float()
-            env_stats = {
-                'num_blocks': env_states.n_clutter_placed.float().mean(),
-                'passable_ratio': env_states.passable.float().mean(),
-                'shortest_path_length': spl.mean(),
-                'solved_path_length': torch.where(
-                    solved.any(),
-                    (spl * solved).sum() / solved.sum().clamp(min=1),
-                    torch.zeros_like(spl[0])),
-            }
+        env_stats = (None if env_states is None
+                     else self.env.env_stats(env_states, max_r))
         if self.use_plr:
             stats.update(plr_lib.plr_stats(self.plr_buffer, self.plr_cfg))
         return stats, env_stats
@@ -438,7 +444,8 @@ class AdversarialRunner:
         if self.use_plr:
             self.plr_buffer = plr_lib.promote_staged(
                 self.plr_buffer, self.plr_cfg, self.env.get_level(env_states),
-                *a_info['staged'], staged_solvable=env_states.passable)
+                *a_info['staged'],
+                staged_solvable=self.env.solvable(env_states))
         env_ret = self._env_return(
             a_info['rollout'],
             b_info['rollout'] if b_info is not None else a_info['rollout'])
@@ -497,7 +504,7 @@ class AdversarialRunner:
             update_sampler=True)
         self.plr_buffer = plr_lib.promote_staged(
             self.plr_buffer, self.plr_cfg, self.env.get_level(env_states),
-            *a_info['staged'], staged_solvable=env_states.passable,
+            *a_info['staged'], staged_solvable=self.env.solvable(env_states),
             staged_num_edits=parent_edits + 1)
 
     def _coin(self, value) -> torch.Tensor:

@@ -1,12 +1,13 @@
 """Training entry point of the port (dcd_isaac_tpu/train.py:26-131).
 
 ``python -m dcd_isaac_tpu_torch.train --env_name ... --ued_algo
-paired ...`` parses the port's arguments, builds the env, the models of
-``--ued_algo`` (``make_all_models``) and the runner on the card
-(``--no_cuda true`` asks for the CPU) and runs cycles
-until ``--num_env_steps``, printing one JSON stats line per cycle.  With
-``--use_plr true`` the runner keeps a PLR buffer and picks generate, replay
-(and with ``--use_editor true``, edit) cycles.  CSV logs, checkpoints and
+paired ...`` parses the port's arguments, builds the env (MultiGrid, or
+the walker's three training names), the models of ``--ued_algo``
+(``make_all_models``) and the runner on the card (``--no_cuda true`` asks
+for the CPU) and runs cycles until ``--num_env_steps``, printing one JSON
+stats line per cycle.  With ``--use_plr true`` the runner keeps a PLR
+buffer and picks generate, replay (and with ``--use_editor true``, edit)
+cycles.  CSV logs, checkpoints and
 in-training evaluation come with the entry-points slice.
 """
 

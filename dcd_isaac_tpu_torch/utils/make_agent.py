@@ -1,7 +1,8 @@
 """Model factory (port of dcd_isaac_tpu/utils/make_agent.py:15-66).
 
 The MultiGrid roles: the student ``agent``, the PAIRED antagonist
-``adversary_agent`` (a second student) and the teacher ``adversary_env``.
+``adversary_agent`` (a second student) and the teacher ``adversary_env``;
+the walker's student (``models/walker_models.py``).
 """
 
 from __future__ import annotations
@@ -10,12 +11,15 @@ import torch
 
 from ..envs.registry import env_family
 from ..models.multigrid_models import MultigridNetwork
+from ..models.walker_models import make_walker_model
 
 
 def make_model(args, env, agent_type: str = 'agent',
-               generator: torch.Generator = None) -> MultigridNetwork:
-    """The MultiGrid network of a role (utils/make_agent.py:27-56)."""
+               generator: torch.Generator = None) -> torch.nn.Module:
+    """The network of a role (utils/make_agent.py:27-56)."""
     family = env_family(args.env_name)
+    if family == 'walker':
+        return make_walker_model(args, env, agent_type, generator)
     if family != 'multigrid':
         raise NotImplementedError(f'{family} models are not ported yet')
     if agent_type == 'adversary_env':

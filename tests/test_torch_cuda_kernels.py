@@ -304,3 +304,63 @@ def test_multigrid_edit_bit_exact(device):
     # reset_random: the check's own, then the state's for the mutations
     assert (me.mutate.launches, me.reset_random.launches) == (
         before[0] + 4 * n_env, before[1] + 4 * n_env)
+
+
+# The walker's kernels: the checks are chip_smoke.py's.
+
+def test_walker_terrain_bit_exact(device):
+    """Kernel B11: the heightfield, boxes, box count and bodies of 1024
+    levels each from the full, easy and POET ranges and the five terrain
+    kinds, bit for bit against the twins; one launch a batch."""
+    import chip_smoke
+    from dcd_isaac_tpu_torch.kernels import walker_terrain
+    before = walker_terrain.generate.launches
+    out = chip_smoke.check_walker_terrain(device)
+    torch.cuda.synchronize()
+    assert walker_terrain.generate.launches == before + 4
+    assert out['max_abs_err'] == 0.0
+
+
+@pytest.mark.parametrize('n', [16, 64, 512])
+def test_walker_step_matches_plain(device, n):
+    """Kernel B10 one step at a time from 120 states of a random walk,
+    some of them on boxes (chip_smoke.WALKER_STEP_ATOL on floats, flags
+    exact); one launch a step, and B11 and B10 again for each reset."""
+    import chip_smoke
+    from dcd_isaac_tpu_torch.kernels import walker_step
+    before = walker_step.step.launches
+    out = chip_smoke.check_walker_step(n, 120, device)
+    torch.cuda.synchronize()
+    # 120 steps, and the first step of the levels' reset
+    assert walker_step.step.launches == before + 121
+    assert out['foot_contacts'] > 0 and out['episodes_ended'] > 0
+    assert out['box_contacts'] > 0
+
+
+@pytest.mark.parametrize('clip_value_loss', [True, False])
+@pytest.mark.parametrize('rows', [1024, 32768])
+def test_ppo_loss_gaussian_matches_plain_and_repeats(device, rows,
+                                                     clip_value_loss):
+    """Kernel B7's Gaussian branch at the walker's minibatch and rollout:
+    means 1e-6 relative, gradients within 1e-5 of the twin's largest entry
+    plus 1e-5 relative, bit-identical runs; two launches a forward pass
+    (rows, fold) and two a backward pass (rows, the log-std's fold)."""
+    import chip_smoke
+    from dcd_isaac_tpu_torch.kernels.ppo_loss import ppo_loss_gaussian
+    before = (ppo_loss_gaussian.launches,
+              ppo_loss_gaussian.backward_launches)
+    chip_smoke.check_ppo_loss_gaussian(rows, clip_value_loss, device)
+    assert (ppo_loss_gaussian.launches,
+            ppo_loss_gaussian.backward_launches) == (before[0] + 8,
+                                                     before[1] + 4)
+
+
+def test_plr_promote_float_levels(device):
+    """Kernel B8 (c) with the walker's float levels: exact against the
+    twin, duplicates folded by the value-cast hash."""
+    import chip_smoke
+    from dcd_isaac_tpu_torch.kernels import plr as pk
+    before = pk.promote.launches
+    out = chip_smoke.check_plr_promote_float(device)
+    assert pk.promote.launches == before + 8
+    assert out['max_abs_err'] == 0.0

@@ -49,7 +49,7 @@ def test_port_and_smoke_import_without_jax(order):
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20
+    assert int(proc.stdout.split()[-1]) >= 40
 
 
 def test_kernels_build_without_torch_headers():
@@ -217,3 +217,69 @@ def test_teacher_kernel_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match='multiple of 32'):
         tp.teacher_proj(img, w[0][:16].contiguous(), w[1][:16].contiguous(),
                         w[2], torch.zeros((8, 25 * 16 + 4), device='meta'))
+
+
+def _to(x, device):
+    """A (nested) dataclass of tensors on ``device``."""
+    import dataclasses
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _to(getattr(x, f.name), device)
+                          for f in dataclasses.fields(x)})
+    return x.to(device)
+
+
+def test_walker_kernel_wrappers_take_plain_twins_on_cpu(monkeypatch):
+    """Kernels B10, B11 and B7's Gaussian branch on CPU tensors: the plain
+    twins, no build, no launch counted."""
+    from dcd_isaac_tpu_torch.envs.walker.adversarial import (
+        AdversarialWalker, WalkerParams,
+    )
+    from dcd_isaac_tpu_torch.envs.walker.env import step_walker_plain
+    from dcd_isaac_tpu_torch.envs.walker.terrain import (
+        generate_terrain, terrain_draws,
+    )
+    from dcd_isaac_tpu_torch.kernels import ppo_loss as pl
+    from dcd_isaac_tpu_torch.kernels import walker_step, walker_terrain
+    _no_build(monkeypatch)
+    counts = (walker_step.step.launches, walker_terrain.generate.launches,
+              pl.ppo_loss_gaussian.launches)
+    env = AdversarialWalker(WalkerParams(mode='easy'))
+    state, _ = env.reset_random(3, torch.Generator().manual_seed(0), 'cpu')
+    a = torch.rand(3, 4) * 2 - 1
+    got, want = walker_step.step(state, a), step_walker_plain(state, a)
+    assert all(torch.equal(x, y) for x, y in zip(got[1:], want[1:]))
+    params = state.level_params
+    terrain, _ = walker_terrain.generate(params, state.level_seed)
+    assert torch.equal(terrain.ys, generate_terrain(
+        params, terrain_draws(state.level_seed)).ys)
+    x = [torch.rand(5, 4), torch.zeros(4), torch.rand(5), torch.rand(5, 4)]
+    x += [torch.rand(5) for _ in range(4)]
+    assert all(torch.equal(p, q) for p, q in zip(
+        pl.ppo_loss_gaussian(*x, 0.2, False, 0.5, 0.01),
+        pl.ppo_loss_gaussian_plain(*x, 0.2, False, 0.5, 0.01)))
+    assert counts == (walker_step.step.launches,
+                      walker_terrain.generate.launches,
+                      pl.ppo_loss_gaussian.launches)
+
+
+def test_walker_kernel_wrappers_never_fall_back_off_the_cpu(monkeypatch):
+    from dcd_isaac_tpu_torch.envs.walker.adversarial import (
+        AdversarialWalker, WalkerParams,
+    )
+    from dcd_isaac_tpu_torch.kernels import ppo_loss as pl
+    from dcd_isaac_tpu_torch.kernels import walker_step, walker_terrain
+    env = AdversarialWalker(WalkerParams(mode='easy'))
+    state, _ = env.reset_random(2, torch.Generator().manual_seed(0), 'cpu')
+    _no_build(monkeypatch)
+    meta = _to(state, 'meta')
+    with pytest.raises(RuntimeError, match='kernel build requested'):
+        walker_step.step(meta, torch.zeros((2, 4), device='meta'))
+    with pytest.raises(RuntimeError, match='kernel build requested'):
+        walker_terrain.generate(meta.level_params, meta.level_seed)
+    z = lambda *s: torch.zeros(s, device='meta')
+    with pytest.raises(RuntimeError, match='kernel build requested'):
+        pl.ppo_loss_gaussian(z(5, 4), z(4), z(5), z(5, 4), z(5), z(5),
+                             z(5), z(5), 0.2, False, 0.5, 0.01)
+    with pytest.raises(ValueError, match='at most 8'):
+        pl.ppo_loss_gaussian(z(5, 9), z(9), z(5), z(5, 9), z(5), z(5),
+                             z(5), z(5), 0.2, False, 0.5, 0.01)
