@@ -41,9 +41,20 @@ Phases, each printing one JSON line with its wall time:
      terrain kinds, B10 one step at a time from 120 states of 64 walkers
      within 1e-4, B7's Gaussian branch at R = 1024 and 32 768, B8's
      promotion of float levels with duplicates exact) and a small walker
-     ACCEL sequence on the card against the CPU (``walker_vs_cpu``); then
-     each kernel's time at the main path's shapes beside its plain twin's
-     and its bound;
+     ACCEL sequence on the card against the CPU (``walker_vs_cpu``);
+     CarRacing's kernels against their twins (``carracing_vs_plain``:
+     B13b's track build bit for bit on 4096 levels with n in [3, 12] and
+     the start angle set and unset, B12's frames bit for bit for 64 cars
+     on each of 8 tracks at t = 0, 0.5, 2 with and without the stack
+     shift and in the crop + grayscale variant, B13a one control step at a
+     time over 125 steps of 64 cars within 1e-6 (and 40 steps of the
+     sparse-reward and clip branches), failing unless wheels were on the
+     grass, tiles visited and episodes ended, B7's Beta branch at R = 500
+     and 2000 with actions at the clip edges, and GAE, B8's fold, weights
+     and float promotion and the normalisation at CarRacing's shapes) and
+     a small CarRacing DR and PLR⊥ sequence on the card against the CPU
+     (``carracing_vs_cpu``); then each kernel's time at the main path's
+     shapes beside its plain twin's and its bound;
   4. slices, each with every kernel's launch count read around it: two
      domain-randomization training cycles through the training entry
      point at the settings of
@@ -64,6 +75,14 @@ Phases, each printing one JSON line with its wall time:
      of bipedal_accel.json and one of bipedal_robust_plr.json,
      bipedal_dr.json and bipedal_accel_poet.json through the training
      entry point;
+     ``carracing_cycles``: train_scripts/grid_configs/car_racing/
+     cr_dr.json at full width (N = 16, T = 125, 96 x 96 x 12 frames, the
+     CNN student with its Beta policy, 8 epochs of 4 minibatches,
+     VecNormalize) for one cycle, and cr_robust_plr.json (S = 8000 filled
+     to rho through promote_staged) for a generate and a replay cycle,
+     each with its seconds, launches, host syncs and peak memory; then
+     one cycle each of cr_dr.json, cr_plr.json and cr_robust_plr.json
+     through the training entry point;
   5. the ``kernels`` JSON line, then the result line.
 
 It exits non-zero, printing no result, if there is no CUDA card or any
@@ -152,6 +171,7 @@ EDIT_ENVS = ('MultiGrid-GoalLastFewerBlocksAdversarial-EditWN-v0',
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12          # outside the tensor cores (the same data sheet)
 
 
 def log(phase, t0, **kw):
@@ -806,11 +826,590 @@ def view_cells_read(grid, agent_pos, agent_dir, v: int) -> int:
     return int(inb.sum()) - n
 
 
-def bound(nbytes, flops):
+
+# -- CarRacing: cr_dr.json, cr_plr.json, cr_robust_plr.json ------------------
+CR_N, CR_T, CR_S = 16, 125, 8000
+CR_COMMON = [
+    '--env_name', 'CarRacing-Bezier-Adversarial-v0',
+    '--ued_algo', 'domain_randomization', '--num_processes', str(CR_N),
+    '--num_steps', str(CR_T), '--ppo_epoch', '8', '--num_mini_batch', '4',
+    '--grayscale', 'false', '--crop_frame', 'false',
+    '--num_action_repeat', '8', '--frame_stack', '4',
+    '--normalize_returns', 'true', '--use_popart', 'false',
+    '--handle_timelimits', 'true', '--recurrent_agent', 'false',
+    '--recurrent_adversary_env', 'false', '--recurrent_hidden_size', '1',
+    '--lr', '3e-4', '--max_grad_norm', '0.5', '--gamma', '0.99',
+    '--gae_lambda', '0.9', '--value_loss_coef', '0.5',
+    '--entropy_coef', '0.0', '--clip_value_loss', 'false',
+    '--clip_param', '0.2', '--reward_shaping', 'true',
+    '--log_plr_buffer_stats', 'true', '--log_grad_norm', 'true',
+    '--seed', '1']
+CR_DR_ARGS = CR_COMMON
+CR_PLR_COMMON = CR_COMMON + [
+    '--adv_entropy_coef', '0.01', '--use_categorical_adv', 'true',
+    '--use_skip', 'false', '--choose_start_pos', 'false',
+    '--sparse_rewards', 'false', '--use_plr', 'true',
+    '--level_replay_strategy', 'positive_value_loss',
+    '--level_replay_score_transform', 'power',
+    '--level_replay_temperature', '1.0', '--staleness_coef', '0.7',
+    '--level_replay_prob', '0.5', '--level_replay_rho', '0.5',
+    '--level_replay_seed_buffer_size', str(CR_S),
+    '--log_replay_complexity', 'true']
+CR_PLR_ARGS = CR_PLR_COMMON + ['--no_exploratory_grad_updates', 'false']
+CR_ROBUST_PLR_ARGS = CR_PLR_COMMON + ['--no_exploratory_grad_updates', 'true']
+CR_STEP_TOL = 1e-6
+
+
+def carracing_levels(n, device, seed=0, n_points=None):
+    """(n, 28) CarRacing levels: control points uniform on the playfield,
+    their count uniform in [3, 12] (``n_points`` fixes it), the start
+    angle set on every other level and unset (-1) on the rest, dense
+    rewards, a random seed."""
+    import torch
+    from dcd_isaac_tpu_torch.envs.carracing.adversarial import (
+        AdversarialCarRacing,
+    )
+    from dcd_isaac_tpu_torch.envs.carracing.track import PLAYFIELD
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    cps = torch.rand((n, 12, 2), generator=g, device=device) * PLAYFIELD
+    if n_points is None:
+        k = torch.randint(3, 13, (n,), generator=g, device=device)
+    else:
+        k = torch.full((n,), n_points, device=device)
+    alpha = torch.rand((n,), generator=g, device=device) * 6.2831855
+    alpha = torch.where(torch.arange(n, device=device) % 2 == 0, alpha,
+                        torch.full_like(alpha, -1.0))
+    seed_ = torch.randint(0, 1 << 24, (n,), generator=g, device=device)
+    return AdversarialCarRacing.make_level(
+        cps, k, alpha, torch.full((n,), -1, device=device), seed_)
+
+
+def check_carracing_track(device, n=4096) -> dict:
+    """Kernel B13b against its twin (``build_level_plain``) on 4096
+    levels with n in [3, 12] and the start angle set and unset: every
+    output bit for bit (points, betas, border and valid flags, counts,
+    offsets, start tiles, the car)."""
+    import torch
+    from dcd_isaac_tpu_torch.envs.carracing.adversarial import (
+        AdversarialCarRacing, build_level_plain,
+    )
+    from dcd_isaac_tpu_torch.kernels import carracing_track
+    levels = carracing_levels(n, device, 11)
+    cps, k, alpha, _, _ = AdversarialCarRacing.decode_level(levels)
+    cps, k, alpha = cps.contiguous(), k.contiguous(), alpha.contiguous()
+    tr, start, car = carracing_track.build(cps, k, alpha)
+    ptr, pstart, pcar = build_level_plain(cps, k, alpha)
+    err = 0.0
+    for f in ('points', 'beta', 'border', 'valid', 'n_points', 'offset'):
+        err = max(err, check_diff(f'carracing_track {f}', getattr(tr, f),
+                                  getattr(ptr, f)))
+    err = max(err, check_diff('carracing_track start', start, pstart))
+    for f in ('pos', 'angle'):
+        err = max(err, check_diff(f'carracing_track car {f}',
+                                  getattr(car, f), getattr(pcar, f)))
+    borders = int(tr.border.sum())
+    if not (borders and int((start > 0).sum())):
+        raise AssertionError(f'carracing_track: {borders} border tiles, '
+                             f'{int((start > 0).sum())} start tiles > 0')
+    return {'levels': n, 'max_abs_err': err, 'border_tiles': borders,
+            'tiles': int(tr.n_points.sum()),
+            'start_set': int((alpha >= 0).sum())}
+
+
+def place_cars(state, g, device):
+    """The cars of ``state`` moved onto their tracks: each on a random
+    tile, across the road by 0 (on the road), the track width + 0.6 (on
+    a border's band), 15 (on the grass) or 400 units (off the field) in
+    turn, with random heading, speed, spin, wheel speeds and steering."""
+    import torch
+    from dcd_isaac_tpu_torch.envs.carracing.track import TRACK_WIDTH
+    tr, car = state.track, state.car
+    n = car.angle.shape[0]
+    rows = torch.arange(n, device=device)
+    tile = (torch.rand((n,), generator=g, device=device)
+            * tr.n_points.float()).long()
+    nrm = tr.beta[rows, tile]
+    off = torch.tensor([0.0, TRACK_WIDTH + 0.6, 15.0, 400.0],
+                       device=device)[rows % 4]
+    off = off * torch.where(rows % 8 < 4, 1.0, -1.0)
+    pos = tr.points[rows, tile] + off[:, None] * torch.stack(
+        [torch.cos(nrm), torch.sin(nrm)], -1)
+    u = lambda *s: torch.rand(s, generator=g, device=device) * 2 - 1
+    return car.replace(
+        pos=pos, angle=nrm + u(n) * 0.5, vel=u(n, 2) * 60,
+        angvel=u(n) * 4, wheel_omega=u(n, 4) * 150, steer_angle=u(n) * 0.42)
+
+
+def check_carracing_render(device, tracks=8, cars=64) -> dict:
+    """Kernel B12 against its twin (``stack_frames_plain``) for 64 cars on
+    each of 8 tracks at t = 0, 0.5 and 2 (the zoom ramp), on the road, on
+    border bands, on the grass and off the field, with nonzero indicator
+    bars: the new stack after random older frames, and a reset's
+    replicated stack, bit for bit; the crop and grayscale variants
+    too."""
+    import torch
+    from dcd_isaac_tpu_torch.envs.carracing.adversarial import (
+        AdversarialCarRacing,
+    )
+    from dcd_isaac_tpu_torch.envs.carracing.env import (
+        CarRacingConfig, stack_frames_plain,
+    )
+    from dcd_isaac_tpu_torch.kernels import carracing_render
+    env = AdversarialCarRacing()
+    levels = carracing_levels(tracks, device, 12,
+                              n_points=12).repeat_interleave(cars, 0)
+    state, _ = env.reset_to_level(levels)
+    g = torch.Generator(device=device)
+    g.manual_seed(13)
+    car = place_cars(state, g, device)
+    n = levels.shape[0]
+    err, pixels = 0.0, {}
+    for cfg in (CarRacingConfig(), CarRacingConfig(crop=True, grayscale=True,
+                                                    frame_stack=2)):
+        h, w = cfg.obs_hw
+        old = torch.rand((n, h, w, cfg.obs_channels), generator=g,
+                         device=device)
+        for t in (0.0, 0.5, 2.0):
+            tt = torch.full((n,), t, device=device)
+            for frames in (old, None):
+                got = carracing_render.render(cfg, car, state.track, tt,
+                                              frames)
+                want = stack_frames_plain(cfg, car, state.track, tt, frames)
+                err = max(err, check_diff(
+                    f'carracing_render crop={cfg.crop} t={t} '
+                    f'shift={frames is not None}', got, want))
+            if not cfg.crop:
+                last = got[..., -3:]
+                pixels[f't{t}'] = {
+                    'road': int((last[..., 1] < -0.1).sum()),
+                    'grass': int((last[..., 1] > 0.2).sum()),
+                    'red': int(((last[..., 0] > 0.9)
+                                & (last[..., 1] < -0.9)).sum())}
+    if not all(all(v.values()) for v in pixels.values()):
+        raise AssertionError(f'carracing_render: a layer is missing '
+                             f'{pixels}')
+    return {'cars': n, 'tracks': tracks, 'times': [0.0, 0.5, 2.0],
+            'max_abs_err': err, 'pixels': pixels}
+
+
+def check_carracing_step(device, steps=125, sparse=False, tracks=8,
+                         cars=8) -> dict:
+    """Kernel B13a against its twin (``step_dynamics_plain``) one control
+    step at a time from the states of 64 cars on 8 tracks driven by
+    random actions (mostly gas), each ended episode reset: every float
+    within CR_STEP_TOL (relative, and absolute near zero), visited tiles,
+    counts, done, truncation and the ring pointer exact.  Fails unless
+    some wheels were on the grass, tiles were visited and episodes ended.
+    ``sparse`` runs the sparse-reward goal bins with a reward clip of 5
+    and a TimeLimit of 160 inner steps instead."""
+    import torch
+    from dcd_isaac_tpu_torch.envs.carracing.adversarial import (
+        AdversarialCarRacing, CarRacingUEDParams,
+    )
+    from dcd_isaac_tpu_torch.envs.carracing.dynamics import wheel_positions
+    from dcd_isaac_tpu_torch.envs.carracing.env import (
+        CarRacingConfig, step_dynamics_plain,
+    )
+    from dcd_isaac_tpu_torch.envs.carracing.track import on_road
+    from dcd_isaac_tpu_torch.kernels import carracing_step
+    cfg = (CarRacingConfig(sparse_rewards=True, reward_shaping=False,
+                           num_goal_bins=24, clip_reward=5.0,
+                           max_inner_steps=160)
+           if sparse else CarRacingConfig())
+    env = AdversarialCarRacing(CarRacingUEDParams(cfg=cfg))
+    levels = carracing_levels(tracks, device, 14,
+                              n_points=12).repeat_interleave(cars, 0)
+    n = levels.shape[0]
+    if sparse:
+        levels[:, 26] = torch.arange(n, device=device) % 24
+    start, _ = env.reset_to_level(levels)
+    g = torch.Generator(device=device)
+    g.manual_seed(15)
+    state = start
+    err, grass, dones, truncs = 0.0, 0, 0, 0
+    for _ in range(steps):
+        a = torch.rand((n, 3), generator=g, device=device)
+        a[:, 0] = a[:, 0] * 2 - 1
+        a[:, 2] = torch.where(a[:, 2] < 0.8, 0.0, a[:, 2])
+        wx, wy = wheel_positions(state.car)
+        grass += int((~on_road(state.track, wx, wy)[0]).sum())
+        got = carracing_step.step(cfg, state, a)
+        want = step_dynamics_plain(cfg, state, a)
+        for f in ('pos', 'angle', 'vel', 'angvel', 'wheel_omega',
+                  'steer_angle', 'gas', 'fuel_spent'):
+            err = max(err, check_diff(f'carracing_step car {f}',
+                                      getattr(got[0].car, f),
+                                      getattr(want[0].car, f), CR_STEP_TOL,
+                                      CR_STEP_TOL))
+        for f in ('reward_total', 'prev_reward', 't', 'reward_history',
+                  'sparse_accum'):
+            err = max(err, check_diff(f'carracing_step {f}',
+                                      getattr(got[0], f), getattr(want[0], f),
+                                      CR_STEP_TOL, CR_STEP_TOL))
+        for f in ('visited', 'tile_visited_count', 'inner_steps', 'hist_ptr',
+                  'done_latch', 'goal_reached'):
+            check_diff(f'carracing_step {f}', getattr(got[0], f),
+                       getattr(want[0], f))
+        err = max(err, check_diff('carracing_step reward', got[1], want[1],
+                                  CR_STEP_TOL, CR_STEP_TOL))
+        check_diff('carracing_step done', got[2], want[2])
+        check_diff('carracing_step truncated', got[3], want[3])
+        dones += int(got[2].sum())
+        truncs += int(got[3].sum())
+        state = start.where(got[2], got[0])
+    visited = int(state.tile_visited_count.sum())
+    if not (grass and dones and visited):
+        raise AssertionError(f'carracing_step: {grass} wheels on grass, '
+                             f'{dones} ended episodes, {visited} tiles')
+    return {'cars': n, 'steps': steps, 'sparse': sparse,
+            'max_abs_err': err, 'wheel_steps_on_grass': grass,
+            'episodes_ended': dones, 'truncated': truncs,
+            'tiles_visited_at_end': visited, 'tol': CR_STEP_TOL}
+
+
+def beta_inputs(R, device, seed=0):
+    """Kernel B7's Beta rows: alphas and betas in [1, 9), actions in
+    [0, 1] with an eighth at each clip edge (0 and 1), a quarter of the
+    rows with the ratio exactly 1 and the values equal to the old
+    values."""
+    import torch
+    from dcd_isaac_tpu_torch.models.distributions import beta_log_prob
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    u = lambda *s: torch.rand(s, generator=g, device=device)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)
+    alpha, beta, values = 1 + 8 * u(R, 3), 1 + 8 * u(R, 3), rn(R)
+    x = u(R, 3)
+    edge = u(R, 3)
+    x = torch.where(edge < 0.125, torch.zeros_like(x),
+                    torch.where(edge > 0.875, torch.ones_like(x), x))
+    tie = u(R) < 0.25
+    lp = beta_log_prob(alpha, beta, x)
+    old_lp = torch.where(tie, lp, lp + rn(R) * 0.3)
+    old_v = torch.where(tie, values, values + rn(R) * 0.3)
+    return (alpha, beta, values, x, old_lp, old_v, values + rn(R), rn(R))
+
+
+def check_ppo_loss_beta(R, clip_value_loss, device) -> dict:
+    """Kernel B7's Beta branch against its twins: the four means within
+    1e-6 relative of the twin in float64; dalpha, dbeta and dvalues within
+    1e-5 of the twin's largest entry plus 1e-5 relative; bit-identical over
+    two runs."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels.ppo_loss import (
+        ppo_loss_beta, ppo_loss_beta_plain, ppo_loss_beta_plain_backward,
+    )
+    rows = beta_inputs(R, device)
+    cfg = (0.2, clip_value_loss, 0.5, 0.01)
+    upstream = torch.tensor([1.0, 0.0, 0.0, 0.0], device=device)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in rows[:3]]
+        out = ppo_loss_beta(*leaves, *rows[3:], *cfg)
+        runs.append((torch.stack(out).detach(),
+                     *torch.autograd.grad(out[0], leaves)))
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f'ppo_loss_beta R={R}: two runs differ')
+    want = torch.stack(ppo_loss_beta_plain(*[t.double() for t in rows],
+                                           *cfg))
+    torch.testing.assert_close(runs[0][0].double(), want, rtol=1e-6,
+                               atol=1e-9)
+    grads = {}
+    for name, a, b in zip(('dalpha', 'dbeta', 'dvalues'), runs[0][1:],
+                          ppo_loss_beta_plain_backward(upstream, *rows,
+                                                       *cfg)):
+        scale = float(b.abs().max())
+        if not scale > 0:
+            raise AssertionError(f'ppo_loss_beta: {name} of the twin 0')
+        torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=1e-5,
+                                   msg=lambda m: f'{name}: {m}')
+        e = float((a - b).abs().max())
+        grads[name] = {'max_abs_err': e, 'max_abs_ref': scale,
+                       'max_err_over_ref': e / scale}
+    return {'R': R, 'clip_value_loss': clip_value_loss,
+            'max_rel_err_means': float(((runs[0][0].double() - want).abs()
+                                        / want.abs()).max()),
+            'max_abs_err': max(g['max_abs_err'] for g in grads.values()),
+            'grads': grads, 'identical_runs': True}
+
+
+
+def check_carracing_against_cpu(device) -> dict:
+    """A small CarRacing DR cycle, then a PLR⊥ generate and replay cycle
+    (N = 4, T = 8, S = 16, 5-step episodes, VecNormalize, 2 epochs of 2
+    minibatches), on the card and on the CPU from the same weights,
+    levels, reset levels, actions, replay seeds and permutations.  Weight
+    changes within 1e-5 (and a change beyond it), the buffers' levels,
+    ids and masks exact and floats within 1e-5, the VecNormalize
+    statistics within 1e-5, as ``walker_vs_cpu``.  Also the share of
+    float32 inputs whose sin, cos, atan2 and sqrt differ between the CPU
+    and the card (``float32_mismatch``)."""
+    import dataclasses
+    import torch
+    from dcd_isaac_tpu_torch.arguments import parser
+    from dcd_isaac_tpu_torch.envs.carracing.adversarial import (
+        AdversarialCarRacing, CarRacingUEDParams,
+    )
+    from dcd_isaac_tpu_torch.envs.carracing.env import CarRacingConfig
+    from dcd_isaac_tpu_torch.runner.adversarial_runner import (
+        AdversarialRunner,
+    )
+    from dcd_isaac_tpu_torch.utils.make_agent import make_model
+    n, t, S = 4, 8, 16
+    small = ['--num_processes', str(n), '--num_steps', str(t),
+             '--ppo_epoch', '2', '--num_mini_batch', '2',
+             '--level_replay_seed_buffer_size', str(S)]
+    env = AdversarialCarRacing(CarRacingUEDParams(cfg=CarRacingConfig(
+        max_inner_steps=40)))
+    g = torch.Generator().manual_seed(0)
+    levels = carracing_levels(n, 'cpu', 21, n_points=12)
+    table = carracing_levels(t * n, 'cpu', 22).view(t, n, 28)
+    acts = [torch.rand((t, n, 3), generator=g) for _ in range(3)]
+    for a in acts:
+        a[..., 0] = a[..., 0] * 2 - 1
+    perms = [torch.stack([torch.randperm(t * n, generator=g)
+                          for _ in range(2)]) for _ in range(3)]
+    out = {}
+    for name, argv in (('dr', CR_DR_ARGS), ('robust_plr',
+                                             CR_ROBUST_PLR_ARGS)):
+        args = parser.parse_args(argv + small)
+        res = []
+        for dev in ('cpu', device):
+            net = make_model(args, env,
+                             generator=torch.Generator().manual_seed(1))
+            before = weights({'agent': net})
+            runner = AdversarialRunner(args, env, {'agent': net.to(dev)},
+                                       dev)
+            script = lambda a: (lambda o, k: a[k].to(dev))
+            reset = lambda k, st, seeds: (*env.reset_to_level(
+                table[k].to(dev)), seeds)
+            if name == 'dr':
+                stats = runner.run(levels=levels.to(dev), reset_fn=reset,
+                                   sample_action_fn=script(acts[0]),
+                                   perms={'agent': perms[0].to(dev)})
+                buf = {}
+            else:
+                runner.run(levels=levels.to(dev), replay=False,
+                           sample_action_fn=script(acts[1]),
+                           perms={'agent': perms[1].to(dev)})
+                filled = runner.plr_buffer.filled.nonzero().flatten().cpu()
+                seeds = filled[torch.arange(n) % filled.numel()]
+                resets = filled[(torch.arange(t * n) * 3)
+                                % filled.numel()].view(t, n)
+                stats = runner.run(
+                    replay=True, replay_seeds=seeds.to(dev),
+                    replay_reset_seeds=lambda k: resets[k].to(dev),
+                    sample_action_fn=script(acts[2]),
+                    perms={'agent': perms[2].to(dev)})
+                buf = {f.name: getattr(runner.plr_buffer, f.name).cpu()
+                       for f in dataclasses.fields(runner.plr_buffer)
+                       if not f.name.startswith('tscl')}
+            res.append((stats, buf, weights({'agent': net}),
+                        [x.cpu() for x in runner.ret_rms]))
+        (cpu_stats, cpu_buf, cpu_after, cpu_rms), (
+            card_stats, card_buf, card_after, card_rms) = res
+        r = compare_weight_changes(before, cpu_after, card_after)['agent']
+        r['ret_rms_max_abs_err'] = max(
+            check_diff(f'card CarRacing {name} VecNormalize statistics '
+                       'against the CPU', a, b, 1e-5, 1e-5)
+            for a, b in zip(card_rms, cpu_rms))
+        if buf:
+            r['buffer_max_abs_err'] = max(
+                check_diff(f'card CarRacing buffer {f} against the CPU', a,
+                           cpu_buf[f], 1e-5 if a.is_floating_point()
+                           and f != 'levels' else 0.0)
+                for f, a in card_buf.items())
+            r['filled'] = int(card_buf['filled'].sum())
+        r['episodes'] = [cpu_stats['episodes'], card_stats['episodes']]
+        if card_stats['episodes'] != cpu_stats['episodes'] or not (
+                card_stats['episodes']):
+            raise AssertionError(f'CarRacing {name}: episodes '
+                                 f'{r["episodes"]}')
+        out[name] = r
+    # why the env's sin, cos, atan2 and sqrt are rounded from double: the
+    # share of 10^6 float32 inputs in [-10, 10) whose float32 result
+    # differs between the CPU and the card
+    x = torch.rand(1_000_000, generator=g) * 20 - 10
+    y = x.flip(0) + 0.5
+    out['float32_mismatch'] = {
+        name: float((f(x, y) != f(x.to(device), y.to(device)).cpu())
+                    .double().mean())
+        for name, f in (('sin', lambda a, b: torch.sin(a)),
+                        ('cos', lambda a, b: torch.cos(a)),
+                        ('atan2', torch.atan2),
+                        ('sqrt', lambda a, b: torch.sqrt(a.abs())))}
+    return out
+
+
+def carracing_track_work(n_points, start_set: int) -> tuple:
+    """(bytes, operations) that B13b must move and do for these levels,
+    counted from csrc/carracing_track.cu: 104 B read a level (control
+    points, count, start angle) and 6748 B written (points, betas,
+    border and valid flags, count, offset, start tile, the car's position
+    and angle), the 167-float table once.  Operations a level of n
+    points: the mean 26, the rank sort 2 n², the segments 31 n; then 55
+    a curve point (14 for its Bernstein sample, 11 for its step's angle,
+    mask and bbox, 3 for |Δβ|, 22 for the border tests, 3 for the spread,
+    2 for the centring), the tree sum's 511 adds; and 9 a point more on a
+    level whose start angle is set (its polar angle and difference)."""
+    n = n_points.double()
+    levels = n.numel()
+    ops = float((26 + 2 * n * n + 31 * n).sum()) + levels * (480 * 55 + 511)
+    return (levels * (104 + 6748) + 167 * 4,
+            ops + start_set * (480 * 9 + 30))
+
+
+def carracing_render_work(state, frame_stack: int, shift: bool) -> tuple:
+    """(bytes, operations) that B12 must move and do for these cars,
+    counted from csrc/carracing_render.cu: a car's track read once (480 x
+    14 B) and its state (60 B); the frame written (96 x 96 x 12 floats at
+    the stack of 4) and, with the shift, the older frames read (9 of the
+    12 channels); the 66-float table once.  Operations a pixel: 65 (the
+    camera 25, the layers 40) and 8 for each valid point of its track."""
+    n = state.track.n_points.shape[0]
+    pixels = 96 * 96
+    nbytes = (n * (480 * 14 + 60) + n * pixels * 3 * frame_stack * 4
+              + (n * pixels * 3 * (frame_stack - 1) * 4 if shift else 0)
+              + 66 * 4)
+    ops = pixels * float((65 + 8 * state.track.n_points.double()).sum())
+    return nbytes, ops
+
+
+def carracing_step_work(state, repeat: int) -> tuple:
+    """(bytes, operations) that B13a must move and do for these cars,
+    counted from csrc/carracing_step.cu: 5308 B read a car (its state,
+    track points and valid flags, visited flags, ring, counters, action)
+    and 981 B written; the 30-float table once.  Operations a car: the
+    4 wheel searches before the first substep, then in each substep the
+    car step (300), 5 nearest-point searches (the 4 new wheel positions
+    and the hull: 3 + 8 per valid point each) and 150 for the visits,
+    rewards and the ring's tree sum."""
+    nv = state.track.n_points.double()
+    n = nv.numel()
+    search = 3 + 8 * nv
+    ops = float((4 * search + repeat * (300 + 5 * search + 150)).sum())
+    return n * (5308 + 981) + 30 * 4, ops
+
+
+def ppo_loss_beta_work(alpha, beta, clip_value_loss: bool,
+                       backward: bool) -> tuple:
+    """(bytes, fp32 operations, fp64 operations) that B7's Beta branch must
+    move and do for these rows, counted from csrc/ppo_loss.cu's body
+    (``beta_row``, ``digamma_d``, ``trigamma_d``, the rows, fold and
+    backward kernels) for this data: an add, product, quotient,
+    comparison, min, max, lgamma, log, log1p or exp is one operation.
+    Bytes a row: alpha, beta and the actions (9 floats) and five scalars
+    read; the four means written, or, backward, the four upstream
+    gradients read and dalpha, dbeta and dvalues (7 floats) written.
+    digamma at x does 17 + 4 k and trigamma 19 + 5 k, k = max(0, ceil(6 -
+    x)) steps of the recurrence.  Forward, in double: 27 an action (log B
+    6, the log-density 10, the entropy 11) and digamma of a, b and a + b;
+    6 a row for the ratio and surrogates and 4 for its sums; the CTA trees
+    (3 x 255 adds a CTA and in the fold), the fold's 3 a partial and its 9
+    for the means.  In float: the clamp of the actions (2 an action) and
+    the value term (5, or 9 clipped).  Backward, one thread a row: the
+    forward row again, 4 + 15 for the coefficients and the surrogate's
+    weights, 24 an action and digamma and trigamma of a, b and a + b in
+    double; 2 + 6 + 6 (coefficient, clamps twice) and the value gradient
+    (8, or 22 clipped) in float."""
+    a, b = alpha.double(), beta.double()
+    R = a.shape[0]
+    steps = lambda x: (6.0 - x).ceil().clamp(min=0)
+    dg = lambda x: 17 + 4 * steps(x)
+    tg = lambda x: 19 + 5 * steps(x)
+    row = float((27 + dg(a) + dg(b) + dg(a + b)).sum()) + 6 * R
+    if not backward:
+        ctas = min(max(-(-R // 256), 1), 512)
+        f64 = row + 4 * R + (ctas + 1) * 3 * 255 + 3 * ctas + 9
+        f32 = R * (6 + (9 if clip_value_loss else 5))
+        return R * 14 * 4 + 4 * 4, f32, f64
+    f64 = row + 19 * R + float((24 + dg(a + b) + tg(a + b) + dg(a) + tg(a)
+                                + dg(b) + tg(b)).sum())
+    f32 = R * (14 + (22 if clip_value_loss else 8))
+    return R * (14 + 7) * 4 + 4 * 4, f32, f64
+
+
+def time_carracing_kernels(device) -> dict:
+    """Kernels B13b, B12, B13a and B7's Beta branch at the CarRacing
+    path's shapes (N = 16 levels and cars; the minibatch R = 500 and the
+    whole rollout R = 2000), with their twins and bounds (work:
+    ``carracing_track_work``, ``carracing_render_work``,
+    ``carracing_step_work``, ``ppo_loss_beta_work``)."""
+    import torch
+    from types import SimpleNamespace
+    from dcd_isaac_tpu_torch.envs.carracing.adversarial import (
+        AdversarialCarRacing, build_level_plain,
+    )
+    from dcd_isaac_tpu_torch.envs.carracing.env import (
+        CarRacingConfig, stack_frames_plain, step_dynamics_plain,
+    )
+    from dcd_isaac_tpu_torch.kernels import carracing_render as cr
+    from dcd_isaac_tpu_torch.kernels import carracing_step as cs
+    from dcd_isaac_tpu_torch.kernels import carracing_track as ct
+    from dcd_isaac_tpu_torch.kernels.ppo_loss import (
+        PPOLossBeta, ppo_loss_beta, ppo_loss_beta_plain,
+        ppo_loss_beta_plain_backward,
+    )
+    n = CR_N
+    env = AdversarialCarRacing()
+    levels = carracing_levels(n, device, 31, n_points=12)
+    levels[:, 25] = -1.0                # DR's levels start at tile 0
+    cps, k, alpha, _, _ = env.decode_level(levels)
+    cps, k, alpha = cps.contiguous(), k.contiguous(), alpha.contiguous()
+    out = {}
+    b = bound(*carracing_track_work(k, 0))
+    out['carracing_track'] = {
+        'ms': graph_ms(lambda: ct.build(cps, k, alpha), 50),
+        'plain_ms': device_ms(lambda: build_level_plain(cps, k, alpha), 1, 5),
+        'bound_ms': b[0], 'bound_by': b[1]}
+    state, _ = env.reset_to_level(levels)
+    g = torch.Generator(device=device)
+    g.manual_seed(32)
+    cfg = CarRacingConfig()
+    a = torch.rand((n, 3), generator=g, device=device)
+    for _ in range(20):                 # under way, tiles visited
+        state = cs.step(cfg, state, a)[0]
+    b = bound(*carracing_render_work(state, 4, True))
+    out['carracing_render'] = {
+        'ms': graph_ms(lambda: cr.render(cfg, state.car, state.track,
+                                         state.t, state.frames), 20),
+        'plain_ms': device_ms(lambda: stack_frames_plain(
+            cfg, state.car, state.track, state.t, state.frames), 1, 5),
+        'bound_ms': b[0], 'bound_by': b[1]}
+    b = bound(*carracing_step_work(state, cfg.num_action_repeat))
+    out['carracing_step'] = {
+        'ms': graph_ms(lambda: cs.step(cfg, state, a), 50),
+        'plain_ms': device_ms(lambda: step_dynamics_plain(cfg, state, a),
+                              1, 3),
+        'bound_ms': b[0], 'bound_by': b[1]}
+    for R in (CR_N * CR_T // 4, CR_N * CR_T):
+        rows = beta_inputs(R, device)
+        cfg_ = (0.2, False, 0.5, 0.0)
+        ctx = SimpleNamespace(saved_tensors=rows, cfg=cfg_)
+        ones = [torch.ones((), device=device)] * 4
+        fb = bound(*ppo_loss_beta_work(rows[0], rows[1], cfg_[1], False))
+        bb = bound(*ppo_loss_beta_work(rows[0], rows[1], cfg_[1], True))
+        out[f'ppo_loss_beta_r{R}'] = {
+            'ms': graph_ms(lambda: ppo_loss_beta(*rows, *cfg_), 20),
+            'backward_ms': graph_ms(
+                lambda: PPOLossBeta.backward(ctx, *ones), 20),
+            'plain_ms': device_ms(lambda: ppo_loss_beta_plain(
+                *rows, *cfg_), 5, 10),
+            'plain_backward_ms': device_ms(
+                lambda: ppo_loss_beta_plain_backward(
+                    torch.ones(4, device=device), *rows, *cfg_), 5, 10),
+            'bound_ms': fb[0], 'bound_by': fb[1],
+            'backward_bound_ms': bb[0], 'backward_bound_by': bb[1]}
+    return out
+
+
+def bound(nbytes, flops, flops64=0.0):
     """(least ms for the work, 'bytes' or 'operations'): the larger of the
-    bytes over the HBM rate and the fp32 operations over the peak."""
+    bytes over the HBM rate and the operations over the peak of their type
+    (fp32 ``flops``, fp64 ``flops64``)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = (flops / FP32_FLOPS + flops64 / FP64_FLOPS) * 1e3
     return (max(t_bytes, t_ops),
             'bytes' if t_bytes >= t_ops else 'operations')
 
@@ -1726,25 +2325,26 @@ def check_ppo_loss_gaussian(R, clip_value_loss, device) -> dict:
             'grads': grads, 'identical_runs': True}
 
 
-def walker_buffer(S, device, seed=0, filled=0.6):
+def walker_buffer(S, device, seed=0, filled=0.6, make_levels=None):
     """plr_buffer's fields with (9,) float32 walker levels (every fifth a
-    copy of another) in place of the grids."""
+    copy of another) in place of the grids; ``make_levels(n, device,
+    seed)`` gives other float levels (CarRacing's (28,))."""
     buf = plr_buffer(S, device, seed, filled)
-    levels = walker_levels(S, device, seed)
+    levels = (make_levels or walker_levels)(S, device, seed)
     copies = list(range(0, S - 1, 5))
     levels[copies] = levels[[c + 1 for c in copies]]
     return buf.replace(levels=levels * buf.filled[:, None])
 
 
-def walker_staged(buf, N, device, seed=0):
-    """N staged walker levels: copies of three filled slots, a pair of equal
-    ones, the rest new; scores with ties, a fifth without a completed
-    episode (plr_staged's mix)."""
+def walker_staged(buf, N, device, seed=0, make_levels=None):
+    """N staged walker (or ``make_levels``) levels: copies of three filled
+    slots, a pair of equal ones, the rest new; scores with ties, a fifth
+    without a completed episode (plr_staged's mix)."""
     import torch
     g = torch.Generator(device=device)
     g.manual_seed(seed + 1)
     r = lambda *s: torch.rand(s, generator=g, device=device)
-    levels = walker_levels(N, device, 50 + seed)
+    levels = (make_levels or walker_levels)(N, device, 50 + seed)
     full = buf.filled.nonzero().flatten()
     k = min(3, full.numel(), N - 2)
     levels[:k] = buf.levels[full[:k]]
@@ -1755,19 +2355,21 @@ def walker_staged(buf, N, device, seed=0):
             torch.floor(r(N) * 4 + 1).int())
 
 
-def check_plr_promote_float(device) -> dict:
+def check_plr_promote_float(device, S=WALKER_S, N=WALKER_N,
+                            make_levels=None, **kw) -> dict:
     """Kernel B8 (c) with float levels against ``promote_staged_plain``:
     levels, ids, masks and counters exact, scores within 1e-6, at the
-    walker's S = 1000, N = 16 into part-filled and full buffers, staged
-    copies of buffer levels among them (the value-cast hash folds them)."""
+    walker's S = 1000, N = 16 (or CarRacing's S = 8000 and (28,) levels)
+    into part-filled and full buffers, staged copies of buffer levels among
+    them (the value-cast hash folds them)."""
     from dcd_isaac_tpu_torch.kernels import plr as pk
     from dcd_isaac_tpu_torch.level_replay import plr
     out = []
+    kw = kw or {'score_transform': 'rank', 'staleness_coef': 0.5}
     for k, filled in enumerate((0.3, 1.0)):
-        cfg = plr.PLRConfig(capacity=WALKER_S, num_actors=WALKER_N,
-                            score_transform='rank', staleness_coef=0.5)
-        buf = walker_buffer(WALKER_S, device, k, filled)
-        args = walker_staged(buf, WALKER_N, device, k)
+        cfg = plr.PLRConfig(capacity=S, num_actors=N, **kw)
+        buf = walker_buffer(S, device, k, filled, make_levels)
+        args = walker_staged(buf, N, device, k, make_levels)
         runs = [pk.promote(buf, cfg, *args) for _ in range(2)]
         want = plr.promote_staged_plain(buf, cfg, *args)
         err = 0.0
@@ -2118,6 +2720,39 @@ def main() -> int:
     log('walker_vs_plain', t0, **walker_checks)
     t0 = time.perf_counter()
     log('walker_vs_cpu', t0, **check_walker_accel_against_cpu(device))
+    t0 = time.perf_counter()
+    cr_checks = {
+        'carracing_track': check_carracing_track(device),
+        'carracing_render': check_carracing_render(device),
+        'carracing_step': [check_carracing_step(device),
+                           check_carracing_step(device, 40, sparse=True)],
+        'ppo_loss_beta': [check_ppo_loss_beta(r, cv, device)
+                          for r in (CR_N * CR_T // 4, CR_N * CR_T)
+                          for cv in (False, True)],
+        # GAE, B8's fold, weights and float promotion and the
+        # normalisation at the CarRacing path's shapes: T = 125, N = 16,
+        # S = 8000, (28,) levels, R = T·N
+        'gae': [check_gae(CR_T, CR_N, proper, device, gamma=0.99,
+                          gae_lambda=0.9, dense=True)
+                for proper in (True, False)],
+        'plr_fold': check_plr_fold(CR_T, CR_N, CR_S, device,
+                                   'positive_value_loss',
+                                   staleness_coef=0.7),
+        'plr_weights': check_plr_weights(
+            CR_S, device, score_transform='power', temperature=1.0,
+            staleness_coef=0.7),
+        'plr_promote_float': check_plr_promote_float(
+            device, CR_S, CR_N, carracing_levels, score_transform='power',
+            staleness_coef=0.7),
+        'normalize_advantages': check_normalize(*[
+            beta_inputs(CR_N * CR_T, device, seed=7)[k] for k in (6, 2)])}
+    if not (cr_checks['plr_fold']['seeds_scored']
+            and cr_checks['plr_fold']['staged']):
+        raise AssertionError('CarRacing B8 fold: scored or staged nothing')
+    torch.cuda.synchronize()
+    log('carracing_vs_plain', t0, **cr_checks)
+    t0 = time.perf_counter()
+    log('carracing_vs_cpu', t0, **check_carracing_against_cpu(device))
 
     from dcd_isaac_tpu_torch import train
     from dcd_isaac_tpu_torch.arguments import check_args, parser
@@ -2132,6 +2767,10 @@ def main() -> int:
     from dcd_isaac_tpu_torch.algos import rollout as rollout_mod
     from dcd_isaac_tpu_torch.kernels import walker_step, walker_terrain
     from dcd_isaac_tpu_torch.kernels.ppo_loss import ppo_loss_gaussian
+    from dcd_isaac_tpu_torch.kernels import carracing_render as cr
+    from dcd_isaac_tpu_torch.kernels import carracing_step as cs
+    from dcd_isaac_tpu_torch.kernels import carracing_track as ct
+    from dcd_isaac_tpu_torch.kernels.ppo_loss import ppo_loss_beta
     wrappers = {'multigrid_step': multigrid_step,
                 'multigrid_obs': multigrid_obs, 'gae': gae,
                 'multigrid_adversary_step': multigrid_adversary.step,
@@ -2145,7 +2784,9 @@ def main() -> int:
                 'multigrid_reset_random': me.reset_random,
                 'walker_step': walker_step.step,
                 'walker_terrain': walker_terrain.generate,
-                'ppo_loss_gaussian': ppo_loss_gaussian}
+                'ppo_loss_gaussian': ppo_loss_gaussian,
+                'carracing_track': ct.build, 'carracing_render': cr.render,
+                'carracing_step': cs.step, 'ppo_loss_beta': ppo_loss_beta}
 
     def reset_counts():
         for w in wrappers.values():
@@ -2195,12 +2836,15 @@ def main() -> int:
     times.update(time_training_kernels(device))
     times.update(time_plr_kernels(device))
     times.update(time_walker_kernels(device))
+    times.update(time_carracing_kernels(device))
     log('kernel_times', t0, **times)
 
     # -- 4. the slices ------------------------------------------------------
     def run_slice(phase, argv, cycles, need_per_cycle):
         t0 = time.perf_counter()
         reset_counts()
+        syncs = rollout_mod.make_student_rollout.host_syncs
+        torch.cuda.reset_peak_memory_stats()
         _, history = train.main(argv)
         torch.cuda.synchronize()
         launches = read_counts()
@@ -2218,6 +2862,8 @@ def main() -> int:
                                  f'short={short} episodes={episodes}')
         log(phase, t0, cycles=cycles, launches=launches, episodes=episodes,
             cycle_seconds=[s['cycle_time_s'] for s in history],
+            host_syncs=rollout_mod.make_student_rollout.host_syncs - syncs,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
             stats=history[-1])
         return launches
 
@@ -2229,9 +2875,10 @@ def main() -> int:
         chosen by the runner's own coin."""
         t0 = time.perf_counter()
         runner = train.setup(check_args(parser.parse_args(argv)))
+        t_fill = time.perf_counter()
         filled = fill_plr_buffer(runner)
         torch.cuda.synchronize()
-        fill_s = time.perf_counter() - t0
+        fill_s = time.perf_counter() - t_fill
         reset_counts()
         history, seconds = [], []
         for replay in (False, True, None):
@@ -2278,13 +2925,13 @@ def main() -> int:
             'multigrid_step': 2 * MAIN_T, 'multigrid_obs': 2, 'gae': 3,
             **update_launches((MAIN_T, MAIN_T, 27))}),
     }
-    def run_walker_cycle(runner, phase, phases, promotes=1, **kw):
-        """One cycle of a walker runner that runs ``phases`` student phases
-        (2 for a replay cycle with its edit cycle): its seconds, steps a
-        second (phases·N·T over the seconds, as PERF.md counts them),
-        kernel launches, host syncs and peak device memory; fails on a
-        non-finite stat or a kernel of the path that did not run
-        (``walker_need``)."""
+    def run_cycle(runner, phase, phases, need, **kw):
+        """One cycle of a runner that runs ``phases`` student phases (2 for
+        a replay cycle with its edit cycle): its seconds, steps a second
+        (phases·N·T over the seconds, as PERF.md counts them), kernel
+        launches, host syncs and peak device memory; fails on a
+        non-finite stat or a kernel of the path, in ``need``, that did not
+        run."""
         reset_counts()
         syncs = rollout_mod.make_student_rollout.host_syncs
         torch.cuda.synchronize()
@@ -2298,14 +2945,19 @@ def main() -> int:
                if not math.isfinite(float(v))}
         if bad:
             raise AssertionError(f'{phase}: non-finite stats: {bad}')
-        check_counts(phase, launches, walker_need(phases, promotes))
+        check_counts(phase, launches, need)
+        args = runner.args
         return {'seconds': seconds,
-                'sps': phases * WALKER_N * WALKER_T / seconds,
+                'sps': phases * args.num_processes * args.num_steps / seconds,
                 'launches': launches,
                 'host_syncs': (rollout_mod.make_student_rollout.host_syncs
                                - syncs),
                 'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
                 'stats': stats}
+
+    def run_walker_cycle(runner, phase, phases, promotes=1, **kw):
+        return run_cycle(runner, phase, phases,
+                         walker_need(phases, promotes), **kw)
 
     def walker_need(phases, promotes=1):
         """Launches a walker cycle of ``phases`` student phases needs at
@@ -2323,8 +2975,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     runner = train.setup(check_args(parser.parse_args(BIPEDAL_ACCEL_ARGS)))
+    t_fill = time.perf_counter()
     filled = fill_walker_buffer(runner)
-    fill_s = time.perf_counter() - t0
+    fill_s = time.perf_counter() - t_fill
     cycles = {
         'accel_generate': run_walker_cycle(runner, 'accel_generate', 1,
                                            replay=False),
@@ -2362,6 +3015,43 @@ def main() -> int:
         by_path[name] = run_slice(name + '_train', argv + [
             '--num_env_steps', str(WALKER_N * WALKER_T)], 1,
             walker_slice_need)
+    # B13a every step, B12 every step and at each reset (the student's
+    # reset_agent at least), B13b at that reset, GAE, B7's Beta branch for
+    # 8 epochs x 4 minibatches (2 forward and 1 backward launches), the
+    # normalisation; with PLR the fold and the promotion (hash, promote)
+    cr_need = {'carracing_step': CR_T, 'carracing_render': CR_T + 1,
+               'carracing_track': 1, 'gae': 1,
+               'ppo_loss_beta': 8 * 4 * 3, 'ppo_loss_beta_backward': 8 * 4,
+               'normalize_advantages': 2}
+    t0 = time.perf_counter()
+    cr_runner = train.setup(check_args(parser.parse_args(CR_DR_ARGS)))
+    cr_cycles = {'cr_dr': run_cycle(cr_runner, 'cr_dr', 1, cr_need)}
+    robust = train.setup(check_args(parser.parse_args(CR_ROBUST_PLR_ARGS)))
+    t_fill = time.perf_counter()
+    filled = fill_walker_buffer(robust)
+    fill_s = time.perf_counter() - t_fill
+    cr_cycles['cr_robust_plr_generate'] = run_cycle(
+        robust, 'cr_robust_plr_generate', 1, {
+            **cr_need, 'plr_score_fold': 1, 'plr_promote': 2},
+        replay=False)
+    cr_cycles['cr_robust_plr_replay'] = run_cycle(
+        robust, 'cr_robust_plr_replay', 1, {
+            **cr_need, 'plr_score_fold': 1, 'plr_sample_weights': 1},
+        replay=True)
+    if not any(k.startswith('plr_track')
+               for k in cr_cycles['cr_robust_plr_replay']['stats']):
+        raise AssertionError('cr_robust_plr_replay: no plr_ track stats')
+    log('carracing_cycles', t0, prefill_seconds=fill_s,
+        proportion_filled=filled, **cr_cycles)
+    by_path['carracing_dr'] = cr_cycles['cr_dr']['launches']
+    by_path['carracing_robust_plr'] = {
+        k: cr_cycles['cr_robust_plr_generate']['launches'][k]
+        + cr_cycles['cr_robust_plr_replay']['launches'][k]
+        for k in cr_cycles['cr_dr']['launches']}
+    for name, argv in (('cr_dr', CR_DR_ARGS), ('cr_plr', CR_PLR_ARGS),
+                       ('cr_robust_plr', CR_ROBUST_PLR_ARGS)):
+        by_path[name + '_train'] = run_slice(name + '_train', argv + [
+            '--num_env_steps', str(CR_N * CR_T)], 1, cr_need)
     run_slice('bench_env_slice', BENCH_ENV_ARGS, 1, {
         'multigrid_adversary_step': 52, 'teacher_proj': 52 + 1 + 5,
         'multigrid_step': 2 * MAIN_T, 'gae': 3,
@@ -2391,12 +3081,27 @@ def main() -> int:
             'walker_step': walker_checks['walker_step']['max_abs_err'],
             'walker_terrain': walker_checks['walker_terrain']['max_abs_err'],
             'ppo_loss_gaussian': max(
-                c['max_abs_err'] for c in walker_checks['ppo_loss_gaussian'])}
+                c['max_abs_err'] for c in walker_checks['ppo_loss_gaussian']),
+            'carracing_track': cr_checks['carracing_track']['max_abs_err'],
+            'carracing_render': cr_checks['carracing_render']['max_abs_err'],
+            'carracing_step': max(c['max_abs_err']
+                                  for c in cr_checks['carracing_step']),
+            'ppo_loss_beta': max(c['max_abs_err']
+                                 for c in cr_checks['ppo_loss_beta'])}
+    errs['gae'] = max(errs['gae'], *(c['max_abs_err']
+                                     for c in cr_checks['gae']))
+    errs['plr_score_fold'] = max(errs['plr_score_fold'],
+                                 cr_checks['plr_fold']['max_abs_err'])
+    errs['plr_sample_weights'] = max(errs['plr_sample_weights'],
+                                     cr_checks['plr_weights']['max_abs_err'])
+    errs['plr_promote'] = max(errs['plr_promote'],
+                              cr_checks['plr_promote_float']['max_abs_err'])
     errs['plr_promote'] = max(
         errs['plr_promote'], walker_checks['plr_promote_float']['max_abs_err'])
     norms = [{'R': c['R'], 'max_abs_err': c['normalize_max_abs_err']}
              for c in checks['ppo_loss']]
     norms.append(walker_checks['normalize_advantages'])
+    norms.append(cr_checks['normalize_advantages'])
     grad_errs = {'ppo_loss': {'grad_errors': [
         {'R': c['R'], 'A': c['A'], **c['grads']}
         for c in checks['ppo_loss']],
@@ -2404,7 +3109,14 @@ def main() -> int:
         'normalize_rows': sorted({c['R'] for c in norms})},
         'ppo_loss_gaussian': {'grad_errors': [
             {'R': c['R'], **c['grads']}
-            for c in walker_checks['ppo_loss_gaussian']]}}
+            for c in walker_checks['ppo_loss_gaussian']]},
+        'ppo_loss_beta': {'grad_errors': [
+            {'R': c['R'], **c['grads']}
+            for c in cr_checks['ppo_loss_beta']]}}
+    b = times.pop(f'ppo_loss_beta_r{CR_N * CR_T}')
+    times['ppo_loss_beta'] = times.pop(f'ppo_loss_beta_r{CR_N * CR_T // 4}')
+    times['ppo_loss_beta'].update(
+        {f'{k}_r{CR_N * CR_T}': v for k, v in b.items()})
     g = times.pop(f'ppo_loss_gaussian_r{WALKER_N * WALKER_T}')
     times['ppo_loss_gaussian'] = times.pop('ppo_loss_gaussian_r1024')
     times['ppo_loss_gaussian'].update(
@@ -2455,13 +3167,22 @@ def main() -> int:
                            'dcd_isaac_tpu/envs/walker/terrain.py:36'),
         'ppo_loss_gaussian': ('dcd_isaac_tpu_torch/csrc/ppo_loss.cu',
                               'dcd_isaac_tpu/algos/ppo.py:82'),
+        'carracing_track': ('dcd_isaac_tpu_torch/csrc/carracing_track.cu',
+                            'dcd_isaac_tpu/envs/carracing/adversarial.py:62'),
+        'carracing_render': ('dcd_isaac_tpu_torch/csrc/carracing_render.cu',
+                             'dcd_isaac_tpu/envs/carracing/track.py:148'),
+        'carracing_step': ('dcd_isaac_tpu_torch/csrc/carracing_step.cu',
+                           'dcd_isaac_tpu/envs/carracing/env.py:186'),
+        'ppo_loss_beta': ('dcd_isaac_tpu_torch/csrc/ppo_loss.cu',
+                          'dcd_isaac_tpu/algos/ppo.py:82'),
     }
     # `launches` counts kernel launches, forward and backward (see
     # update_launches); B7's entry also carries the advantage
     # normalisation's launches and its gradients' error beside their scale.
     extra = {'lstm_seq': ('lstm_seq_backward',),
              'ppo_loss': ('ppo_loss_backward', 'normalize_advantages'),
-             'ppo_loss_gaussian': ('ppo_loss_gaussian_backward',)}
+             'ppo_loss_gaussian': ('ppo_loss_gaussian_backward',),
+             'ppo_loss_beta': ('ppo_loss_beta_backward',)}
     kernels = [{'name': name, 'route': 'cuda', 'source': src,
                 'replaces': rep,
                 'launches': sum(c[name] for c in by_path.values()),

@@ -11,8 +11,9 @@ model's parameters and the optimizer's moments are updated in place.
 
 The loss after the model's forward and the advantage normalisation are
 kernel B7 (``kernels/ppo_loss.py``: the categorical branch for logits,
-the diagonal-Gaussian branch for a ``dist_type == 'normal'`` model); the
-model's BPTT runs kernel B3.
+the diagonal-Gaussian branch for a ``dist_type == 'normal'`` model, the
+Beta branch for a ``'beta'`` one, which takes the actions unscaled to
+[0, 1]); the model's BPTT runs kernel B3.
 
 The optimizer is optax's ``chain(clip_by_global_norm, adam)`` written out:
 PyTorch's ``clip_grad_norm_`` divides by ``norm + 1e-6`` and its Adam puts
@@ -28,7 +29,7 @@ from typing import List, Optional
 import torch
 
 from ..kernels.ppo_loss import (
-    normalize_advantages, ppo_loss, ppo_loss_gaussian,
+    normalize_advantages, ppo_loss, ppo_loss_beta, ppo_loss_gaussian,
 )
 
 
@@ -110,6 +111,12 @@ def loss_fn(model, cfg: PPOConfig, obs, init_carry, masks_pre, actions,
             out['mean'], out['log_std'], values, actions, old_log_probs,
             old_values, returns, advs, cfg.clip_param, cfg.clip_value_loss,
             cfg.value_loss_coef, cfg.entropy_coef)
+        return loss, (vloss, action_loss, entropy)
+    if model.dist_type == 'beta':
+        loss, vloss, action_loss, entropy = ppo_loss_beta(
+            out['alpha'], out['beta'], values, model.unscale(actions),
+            old_log_probs, old_values, returns, advs, cfg.clip_param,
+            cfg.clip_value_loss, cfg.value_loss_coef, cfg.entropy_coef)
         return loss, (vloss, action_loss, entropy)
     loss, vloss, action_loss, entropy = ppo_loss(
         out, values, actions, old_log_probs, old_values, returns, advs,

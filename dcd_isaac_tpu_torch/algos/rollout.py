@@ -6,8 +6,10 @@ rollout-final forced done and cliffhanger, the truncation-value forward,
 VecMonitor episode accounting, VecNormalize's return normalisation (with
 ``normalize_returns_gamma``; its running statistics are carried in
 ``StepCarry.ret_rms`` across cycles) and the auto-reset select all run on
-the envs' device.  The policy is a categorical over logits (MultiGrid) or
-a diagonal Gaussian (the walker, ``model.dist_type == 'normal'``).  The
+the envs' device.  The policy is a categorical over logits (MultiGrid), a
+diagonal Gaussian (the walker, ``model.dist_type == 'normal'``) or a Beta
+per action (CarRacing, ``'beta'``: the model samples, scales the action
+to the env's bounds and gives the raw sample's log-prob).  The
 only host syncs are the "any slot finished" checks of a stochastic reset,
 one a step on the card, counted in ``make_student_rollout.host_syncs``.
 
@@ -104,9 +106,11 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
                          sample_action_fn: Callable = None):
     """Build ``rollout(carry, generator) → (final, Rollout, next_value,
     stats)``.  ``sample_action_fn(out, t)`` gets the policy's output
-    (logits, or the Gaussian's ``{'mean', 'log_std'}``)."""
+    (logits, the Gaussian's ``{'mean', 'log_std'}`` or the Beta's
+    ``{'alpha', 'beta'}``) and returns the action (a Beta's scaled)."""
     T = cfg.num_steps
     normal = model.dist_type == 'normal'
+    beta = model.dist_type == 'beta'
 
     def rollout(carry: StepCarry, generator: torch.Generator = None):
         if sample_action_fn is not None:
@@ -125,11 +129,17 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
             for t in range(T):
                 logits, value, rnn_carry = model(
                     carry.obs, carry.rnn_carry, carry.mask)
-                action = sample(logits, t)
-                if normal:
+                if beta and sample_action_fn is None:
+                    action, log_prob = model.sample_action(logits, generator)
+                elif beta:
+                    action = sample(logits, t)
+                    log_prob = model.log_prob(logits, action)
+                elif normal:
+                    action = sample(logits, t)
                     log_prob = normal_log_prob(logits['mean'],
                                                logits['log_std'], action)
                 else:
+                    action = sample(logits, t)
                     log_prob = categorical_log_prob(logits, action)
 
                 env_state, next_obs, reward, done, info = env.step(
@@ -192,7 +202,7 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
                     trunc_values=trunc_value, cliffhangers=cliffhanger,
                     level_seeds=carry.level_seeds)
                 if cfg.record_log_dists:
-                    step['log_dists'] = (log_prob if normal else
+                    step['log_dists'] = (log_prob if normal or beta else
                                          torch.log_softmax(logits, -1))
                 steps.append(step)
                 carry = StepCarry(

@@ -10,8 +10,9 @@ true``, ``--checkpoint true`` and ``--archive_interval`` > 0.  The PLR
 and editor flags run (``--log_plr_buffer_stats`` is accepted: the PLR
 stats are in every cycle's stats, as in the JAX package); the runner
 refuses the methods that wait for later slices (PLR with a teacher, a
-fixed PLR seed set, PopArt), the registry the walker's evaluation levels
-and the model factory the walker's teacher and GRU core.
+fixed PLR seed set, PopArt), the registry the walker's and CarRacing's
+evaluation levels (and ACCEL's edits on CarRacing), and the model factory
+the walker's and CarRacing's teachers and the GRU core.
 ``--no_cuda true`` asks for the CPU; otherwise the entry points run on the
 card.
 """

@@ -13,6 +13,11 @@ are the conv features in (h, w, c) order, then the scalar embed, then
 (``WalkerStudentPolicy``): its four trunk layers, value head, Gaussian
 mean and ``log_std``.
 
+``from_flax_carracing`` does the same for the CarRacing student
+(``CarRacingNetwork``): the six conv kernels HWIO → OIHW, and the fcs
+transposed.  The port flattens the conv stack's output in (h, w, c)
+order, as flax does, so the first fc's rows need no permutation.
+
 ``from_jax_plr`` takes the fields of a JAX ``PLRBuffer`` (as numpy arrays,
 an object with those attributes or a dict) and returns the port's
 ``PLRBuffer`` with the same contents on a device.
@@ -84,6 +89,22 @@ def from_flax_walker(params_np: dict) -> dict:
         _dense(sd, name, p[name])
     _dense(sd, 'dist.mean', p['dist']['mean'])
     sd['dist.log_std'] = _t(p['dist']['log_std'])
+    return sd
+
+
+def from_flax_carracing(params_np: dict) -> dict:
+    """flax ``CarRacingNetwork`` params → the port's state dict."""
+    p = params_np.get('params', params_np)
+    sd = {}
+    i = 0
+    while f'conv{i}' in p:
+        kernel = _t(p[f'conv{i}']['kernel'])           # (kh, kw, in, out)
+        sd[f'convs.{i}.weight'] = kernel.permute(3, 2, 0, 1).contiguous()
+        sd[f'convs.{i}.bias'] = _t(p[f'conv{i}']['bias'])
+        i += 1
+    for name in ('actor_fc', 'fc_alpha', 'fc_beta', 'critic_fc',
+                 'critic_head'):
+        _dense(sd, name, p[name])
     return sd
 
 

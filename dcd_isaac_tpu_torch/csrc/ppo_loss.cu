@@ -31,6 +31,11 @@
 // The diagonal-Gaussian branch (the walker student's 4 torques: a mean per
 // row and one shared log-std) has its own rows and backward kernels below,
 // with a fixed-order fold for the log-std's gradient, a sum over the rows.
+// The Beta branch (CarRacing's 3 actions, alpha and beta per row and
+// action) computes each row's log-density, entropy and their gradients in
+// double, with lgamma and hand-written digamma and trigamma (CUDA's math
+// library has neither): the recurrence up to x >= 6, then the asymptotic
+// series.
 //
 // Bound on the H100, by bytes: at R = 2 097 152 and A = 7 the forward reads
 // about 117 MB (35 us at 3.35 TB/s), the backward reads that and writes
@@ -422,6 +427,164 @@ __global__ void __launch_bounds__(kThreads) ppo_gauss_dls_kernel(
   }
 }
 
+// ---- the Beta branch (the CarRacing student) -------------------------------
+// Per row r and action j: x = clamp(u, 1e-6, 1 - 1e-6),
+//   logB = lgamma(a) + lgamma(b) - lgamma(a + b),
+//   lp = sum_j (a - 1) log x + (b - 1) log1p(-x) - logB,
+//   entropy_r = sum_j logB - (a - 1) psi(a) - (b - 1) psi(b)
+//               + (a + b - 2) psi(a + b),
+// the rest of the loss as the categorical branch, the ratio and the
+// surrogates in double, clamped at the caller's float32 bounds 1 -/+ clip
+// (JAX's).  Double, because at the clip edges (a - 1) log x reaches ~100,
+// and float32 rows would put the means more than 1e-6 relative off
+// (tests/test_torch_carracing.py:test_beta_means_need_double_rows).
+// Backward:
+//   dalpha = g_lp (log x - psi(a) + psi(a + b))
+//            + g_ent (-(a - 1) psi1(a) + (a + b - 2) psi1(a + b)),
+// and dbeta likewise with log1p(-x) and b, g_ent = c_e / R.
+
+constexpr int kBetaA = 3;
+
+// digamma for x > 0: psi(x) = psi(x + 1) - 1 / x up to x >= 6, then
+// ln x - 1/(2x) - 1/(12x^2) + 1/(120x^4) - 1/(252x^6) + 1/(240x^8)
+// - 1/(132x^10).
+__device__ double digamma_d(double x) {
+  double r = 0.0;
+  while (x < 6.0) {
+    r -= 1.0 / x;
+    x += 1.0;
+  }
+  const double f = 1.0 / (x * x);
+  return r + log(x) - 0.5 / x -
+         f * (1.0 / 12 - f * (1.0 / 120 - f * (1.0 / 252 -
+                                               f * (1.0 / 240 - f / 132))));
+}
+
+// trigamma for x > 0: psi1(x) = psi1(x + 1) + 1 / x^2 up to x >= 6, then
+// 1/x + 1/(2x^2) + 1/(6x^3) - 1/(30x^5) + 1/(42x^7) - 1/(30x^9)
+// + 5/(66x^11).
+__device__ double trigamma_d(double x) {
+  double r = 0.0;
+  while (x < 6.0) {
+    r += 1.0 / (x * x);
+    x += 1.0;
+  }
+  const double f = 1.0 / (x * x);
+  return r + 1.0 / x + 0.5 * f +
+         f / x * (1.0 / 6 - f * (1.0 / 30 - f * (1.0 / 42 -
+                                                 f * (1.0 / 30 - f * 5.0 / 66))));
+}
+
+struct BetaRow {
+  double lp, entropy, ratio, surr1, surr2;
+};
+
+__device__ __forceinline__ void beta_row(const float* __restrict__ alpha,
+                                         const float* __restrict__ beta,
+                                         const float* __restrict__ u,
+                                         float old_lp, float adv, double lo,
+                                         double hi, BetaRow& row) {
+  double lp = 0.0, ent = 0.0;
+  for (int j = 0; j < kBetaA; ++j) {
+    const double a = alpha[j], b = beta[j];
+    const double x = fminf(fmaxf(u[j], 1e-6f), 1.0f - 1e-6f);
+    const double log_b = lgamma(a) + lgamma(b) - lgamma(a + b);
+    lp += (a - 1.0) * log(x) + (b - 1.0) * log1p(-x) - log_b;
+    ent += log_b - (a - 1.0) * digamma_d(a) - (b - 1.0) * digamma_d(b) +
+           (a + b - 2.0) * digamma_d(a + b);
+  }
+  row.lp = lp;
+  row.entropy = ent;
+  row.ratio = exp(lp - (double)old_lp);
+  row.surr1 = row.ratio * adv;
+  row.surr2 = fmin(fmax(row.ratio, lo), hi) * adv;
+}
+
+__global__ void __launch_bounds__(kThreads) ppo_beta_rows_kernel(
+    const float* __restrict__ alpha, const float* __restrict__ beta,
+    const float* __restrict__ values, const float* __restrict__ u,
+    const float* __restrict__ old_lp, const float* __restrict__ old_v,
+    const float* __restrict__ returns, const float* __restrict__ advs,
+    double* __restrict__ partials, int R, float clip, double lo, double hi,
+    int clip_value_loss) {
+  __shared__ double buf[3][kThreads];
+  double sum[3] = {0.0, 0.0, 0.0};
+  for (int r = blockIdx.x * kThreads + threadIdx.x; r < R;
+       r += gridDim.x * kThreads) {
+    BetaRow row;
+    beta_row(alpha + (size_t)r * kBetaA, beta + (size_t)r * kBetaA,
+             u + (size_t)r * kBetaA, old_lp[r], advs[r], lo, hi, row);
+    sum[0] += fmin(row.surr1, row.surr2);
+    sum[1] += (double)value_term(values[r], old_v[r], returns[r], clip,
+                                 clip_value_loss);
+    sum[2] += row.entropy;
+  }
+  block_sum<3>(sum, buf);
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 3; ++k) partials[blockIdx.x * 3 + k] = sum[k];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) ppo_beta_backward_kernel(
+    const float* __restrict__ alpha, const float* __restrict__ beta,
+    const float* __restrict__ values, const float* __restrict__ u,
+    const float* __restrict__ old_lp, const float* __restrict__ old_v,
+    const float* __restrict__ returns, const float* __restrict__ advs,
+    const float* __restrict__ grad_out, float* __restrict__ dalpha,
+    float* __restrict__ dbeta, float* __restrict__ dvalues, int R,
+    float clip, double lo, double hi, int clip_value_loss,
+    float value_loss_coef, float entropy_coef) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= R) return;
+  const double inv_r = 1.0 / (double)R;
+  const float g_loss = grad_out[0];
+  const float c_v = g_loss * value_loss_coef + grad_out[1];
+  const double c_a = (double)g_loss + (double)grad_out[2];
+  const double c_e = (double)grad_out[3] - (double)g_loss * entropy_coef;
+  const float adv = advs[r];
+  const float* al = alpha + (size_t)r * kBetaA;
+  const float* be = beta + (size_t)r * kBetaA;
+  const float* uu = u + (size_t)r * kBetaA;
+  BetaRow row;
+  beta_row(al, be, uu, old_lp[r], adv, lo, hi, row);
+  const double w1 = row.surr1 < row.surr2 ? 1.0
+                    : row.surr1 > row.surr2 ? 0.0 : 0.5;
+  const bool in_clip = row.ratio >= lo && row.ratio <= hi;
+  const double g_lp = -c_a * inv_r *
+                      (w1 * adv + (1.0 - w1) * (in_clip ? adv : 0.0)) *
+                      row.ratio;
+  const double g_ent = c_e * inv_r;
+  for (int j = 0; j < kBetaA; ++j) {
+    const double a = al[j], b = be[j];
+    const double x = fminf(fmaxf(uu[j], 1e-6f), 1.0f - 1e-6f);
+    const double psi_ab = digamma_d(a + b), t_ab = trigamma_d(a + b);
+    const double s = (a + b - 2.0) * t_ab;
+    dalpha[(size_t)r * kBetaA + j] = (float)(
+        g_lp * (log(x) - digamma_d(a) + psi_ab) +
+        g_ent * (s - (a - 1.0) * trigamma_d(a)));
+    dbeta[(size_t)r * kBetaA + j] = (float)(
+        g_lp * (log1p(-x) - digamma_d(b) + psi_ab) +
+        g_ent * (s - (b - 1.0) * trigamma_d(b)));
+  }
+  const float v = values[r], ret = returns[r];
+  float dv;
+  if (clip_value_loss) {
+    const float d = v - old_v[r];
+    const float clipped = old_v[r] + fminf(fmaxf(d, -clip), clip);
+    const float d1 = v - ret, d2 = clipped - ret;
+    const float q1 = d1 * d1, q2 = d2 * d2;
+    const float w = q1 > q2 ? 1.0f : q1 < q2 ? 0.0f : 0.5f;
+    const float pass = (d >= -clip && d <= clip) ? 1.0f : 0.0f;
+    dv = c_v * 0.5f / (float)R * (w * 2.0f * d1 + (1.0f - w) * 2.0f * d2 * pass);
+  } else {
+    const float d1 = v - ret;
+    const float d = fabsf(d1);
+    const float sign = d1 > 0.0f ? 1.0f : d1 < 0.0f ? -1.0f : 0.0f;
+    dv = c_v / (float)R * (d < 1.0f ? d : 1.0f) * sign;
+  }
+  dvalues[r] = dv;
+}
+
 }  // namespace
 
 // Doubles of workspace a call with R rows needs (3 per partial).
@@ -530,5 +693,47 @@ extern "C" int dcd_ppo_gauss_backward(
   ppo_gauss_dls_kernel<<<1, kThreads, 0, s>>>(
       (const double*)partials, n, (const float*)grad_out, (float*)dlog_std,
       A, entropy_coef);
+  return (int)cudaGetLastError();
+}
+
+// ---- the Beta branch -------------------------------------------------------
+
+extern "C" int dcd_ppo_beta_workspace(int R) { return 3 * reduce_blocks(R); }
+
+extern "C" int dcd_ppo_beta_forward(
+    const void* alpha, const void* beta, const void* values, const void* u,
+    const void* old_lp, const void* old_v, const void* returns,
+    const void* advs, void* partials, void* out, int R, float clip,
+    double lo, double hi, int clip_value_loss, float value_loss_coef,
+    float entropy_coef, void* stream) {
+  if (R <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n = reduce_blocks(R);
+  ppo_beta_rows_kernel<<<n, kThreads, 0, s>>>(
+      (const float*)alpha, (const float*)beta, (const float*)values,
+      (const float*)u, (const float*)old_lp, (const float*)old_v,
+      (const float*)returns, (const float*)advs, (double*)partials, R, clip,
+      lo, hi, clip_value_loss);
+  ppo_loss_final_kernel<<<1, kThreads, 0, s>>>(
+      (const double*)partials, n, (float*)out, R, clip_value_loss,
+      value_loss_coef, entropy_coef);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dcd_ppo_beta_backward(
+    const void* alpha, const void* beta, const void* values, const void* u,
+    const void* old_lp, const void* old_v, const void* returns,
+    const void* advs, const void* grad_out, void* dalpha, void* dbeta,
+    void* dvalues, int R, float clip, double lo, double hi,
+    int clip_value_loss, float value_loss_coef, float entropy_coef,
+    void* stream) {
+  if (R <= 0) return (int)cudaErrorInvalidValue;
+  ppo_beta_backward_kernel<<<(R + kThreads - 1) / kThreads, kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const float*)alpha, (const float*)beta, (const float*)values,
+      (const float*)u, (const float*)old_lp, (const float*)old_v,
+      (const float*)returns, (const float*)advs, (const float*)grad_out,
+      (float*)dalpha, (float*)dbeta, (float*)dvalues, R, clip, lo, hi,
+      clip_value_loss, value_loss_coef, entropy_coef);
   return (int)cudaGetLastError();
 }

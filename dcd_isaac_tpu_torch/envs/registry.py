@@ -1,10 +1,12 @@
 """Environment names of the port (dcd_isaac_tpu/envs/registry.py): the
-MultiGrid ones and the walker's three training names."""
+MultiGrid ones, the walker's three training names and CarRacing's two
+(``CarRacing-Bezier-Adversarial-v0``, ``CarRacing-Bezier-v0``)."""
 
 from __future__ import annotations
 
 from .multigrid.adversarial import AdversarialMultiGrid
 from .multigrid.core import MultiGridParams
+from .carracing.adversarial import make_carracing_env
 from .walker.adversarial import make_walker_env
 
 _MG = {
@@ -56,9 +58,14 @@ WALKER_ENVS = ('BipedalWalker-Adversarial-v0',
                'BipedalWalker-POET-Easy-v0')
 
 
-def make_env(env_name: str):
-    """env id → batched MultiGrid or walker env; the walker's eval levels
-    and CarRacing wait."""
+# CarRacing's training names (train_scripts/grid_configs/car_racing/)
+CARRACING_ENVS = ('CarRacing-Bezier-Adversarial-v0', 'CarRacing-Bezier-v0')
+
+
+def make_env(env_name: str, args=None):
+    """env id → batched MultiGrid, walker or CarRacing env; ``args`` (the
+    parsed flags) sets CarRacing's frame, reward and action-repeat
+    settings.  The walker's and CarRacing's evaluation levels wait."""
     if env_name in _MG:
         return AdversarialMultiGrid(MultiGridParams(**_MG[env_name]))
     if env_name in WALKER_ENVS:
@@ -67,9 +74,12 @@ def make_env(env_name: str):
         raise NotImplementedError(
             f'{env_name}: the walker\'s evaluation levels are not ported yet '
             '(the entry-points slice, ROADMAP queue A.4)')
+    if env_name in CARRACING_ENVS:
+        return make_carracing_env(env_name, args)
     if env_name.startswith('CarRacing'):
         raise NotImplementedError(
-            f'{env_name}: the CarRacing family is not ported yet')
+            f'{env_name}: CarRacing\'s evaluation tracks (Vanilla polar, F1) '
+            'are not ported yet (the entry-points slice, ROADMAP queue A.4)')
     raise ValueError(f'Unknown env {env_name}')
 
 

@@ -33,6 +33,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signature of each entry point: (argtypes); every restype is int.
 SIGNATURES = {
     'dcd_multigrid_step': [_P] * 14 + [_I] * 5 + [_P],
@@ -66,6 +67,15 @@ SIGNATURES = {
     'dcd_walker_step': [_P] * 27 + [_I, _I, _P],
     'dcd_walker_terrain_consts_count': [],
     'dcd_walker_terrain': [_P] * 11 + [_I, _P],
+    'dcd_carracing_track_consts_count': [],
+    'dcd_carracing_track': [_P] * 13 + [_I, _P],
+    'dcd_carracing_render_consts_count': [],
+    'dcd_carracing_render': [_P] * 14 + [_I] * 5 + [_P],
+    'dcd_carracing_step_consts_count': [],
+    'dcd_carracing_step': [_P] * 47 + [_I] * 5 + [_F] * 3 + [_P],
+    'dcd_ppo_beta_workspace': [_I],
+    'dcd_ppo_beta_forward': [_P] * 10 + [_I, _F, _D, _D, _I, _F, _F, _P],
+    'dcd_ppo_beta_backward': [_P] * 12 + [_I, _F, _D, _D, _I, _F, _F, _P],
 }
 
 

@@ -19,6 +19,15 @@ CPU tensors take the plain twins (:func:`ppo_loss_plain`, autograd's
 arithmetic, and :func:`ppo_loss_plain_backward`, the kernel's backward in
 tensor ops); CUDA tensors launch the kernels or raise.
 
+:class:`PPOLossBeta` (:func:`ppo_loss_beta`) is the loss of CarRacing's
+Beta policy: (R, 3) alphas and betas and the actions unscaled to [0, 1],
+the log-density and entropy through lgamma, digamma and trigamma (in
+double on the card: at the clip edges a log-density reaches ~100, whose
+float32 rounding puts the means more than 1e-6 relative off the exact
+ones), gradients to the alphas, the betas and the values.  Its twins
+are :func:`ppo_loss_beta_plain` and :func:`ppo_loss_beta_plain_backward`
+(``torch.lgamma``, ``torch.digamma``, ``torch.polygamma(1, ·)``).
+
 :class:`PPOLossGaussian` (:func:`ppo_loss_gaussian`) is the same loss for
 the walker's diagonal Gaussian (``is_discrete`` false in JAX's loss_fn):
 the log-prob of (R, A) actions from an (R, A) mean and one (A,) log-std,
@@ -30,13 +39,14 @@ sum over the rows, folded in a fixed order) and the values.  Its twins are
 from __future__ import annotations
 
 import ctypes
-
-import torch
-
 import math
 
+import numpy as np
+import torch
+
 from ..models.distributions import (
-    categorical_entropy, categorical_log_prob, normal_entropy, normal_log_prob,
+    BETA_HI, BETA_LO, beta_entropy, beta_log_prob, categorical_entropy,
+    categorical_log_prob, normal_entropy, normal_log_prob,
 )
 from . import _build
 
@@ -57,12 +67,20 @@ def ppo_loss_plain(logits, values, actions, old_log_probs, old_values,
                       clip_value_loss, value_loss_coef, entropy_coef)
 
 
+def ratio_bounds(clip_param: float):
+    """The ratio's clip bounds 1 -/+ clip rounded once to float32, as JAX
+    and PyTorch round a scalar bound of a float32 clamp: a float64 twin
+    clamps at the same bounds as the float32 one and the kernels."""
+    return (float(np.float32(1.0 - clip_param)),
+            float(np.float32(1.0 + clip_param)))
+
+
 def _ppo_terms(new_log_probs, entropy, values, old_log_probs, old_values,
                returns, advs, clip_param, clip_value_loss, value_loss_coef,
                entropy_coef):
     ratio = torch.exp(new_log_probs - old_log_probs)
     surr1 = ratio * advs
-    surr2 = ratio.clamp(1.0 - clip_param, 1.0 + clip_param) * advs
+    surr2 = ratio.clamp(*ratio_bounds(clip_param)) * advs
     action_loss = -torch.minimum(surr1, surr2).mean()
 
     if clip_value_loss:
@@ -101,7 +119,7 @@ def _g_log_prob(grad_out, new_log_probs, old_log_probs, advs, clip_param):
     R = advs.shape[0]
     c_a = grad_out[0] + grad_out[2]
     ratio = torch.exp(new_log_probs - old_log_probs)
-    lo, hi = 1.0 - clip_param, 1.0 + clip_param
+    lo, hi = ratio_bounds(clip_param)
     surr1 = ratio * advs
     surr2 = ratio.clamp(lo, hi) * advs
     w1 = _tie_weight(surr1, surr2)
@@ -167,9 +185,17 @@ def ppo_loss_gaussian_plain_backward(grad_out, mean, log_std, values,
 
 
 def _flags(clip_param, clip_value_loss, value_loss_coef, entropy_coef):
-    # the ratio's bounds rounded once to fp32, as PyTorch rounds clamp's
-    return (ctypes.c_float(clip_param), ctypes.c_float(1.0 - clip_param),
-            ctypes.c_float(1.0 + clip_param), int(clip_value_loss),
+    lo, hi = ratio_bounds(clip_param)
+    return (ctypes.c_float(clip_param), ctypes.c_float(lo), ctypes.c_float(hi),
+            int(clip_value_loss), ctypes.c_float(value_loss_coef),
+            ctypes.c_float(entropy_coef))
+
+
+def _beta_flags(clip_param, clip_value_loss, value_loss_coef, entropy_coef):
+    # the Beta rows run in double, clamped at the float32 bounds
+    lo, hi = ratio_bounds(clip_param)
+    return (ctypes.c_float(clip_param), ctypes.c_double(lo),
+            ctypes.c_double(hi), int(clip_value_loss),
             ctypes.c_float(value_loss_coef), ctypes.c_float(entropy_coef))
 
 
@@ -392,3 +418,120 @@ def normalize_advantages(returns, values):
 
 
 normalize_advantages.launches = 0
+
+
+# ---- the Beta branch (CarRacing) -------------------------------------------
+
+def ppo_loss_beta_plain(alpha, beta, values, u, old_log_probs, old_values,
+                        returns, advs, clip_param: float,
+                        clip_value_loss: bool, value_loss_coef: float,
+                        entropy_coef: float):
+    """(loss, vloss, aloss, entropy) of the Beta policy (JAX
+    ppo.py:99-114 with CarRacingNetwork.log_prob_entropy) of unscaled
+    actions ``u`` (R, A)."""
+    return _ppo_terms(beta_log_prob(alpha, beta, u),
+                      beta_entropy(alpha, beta).mean(), values,
+                      old_log_probs, old_values, returns, advs, clip_param,
+                      clip_value_loss, value_loss_coef, entropy_coef)
+
+
+def ppo_loss_beta_plain_backward(grad_out, alpha, beta, values, u,
+                                 old_log_probs, old_values, returns, advs,
+                                 clip_param: float, clip_value_loss: bool,
+                                 value_loss_coef: float,
+                                 entropy_coef: float):
+    """The Beta kernel's backward in tensor ops: ``grad_out`` (4,) →
+    (dalpha (R, A), dbeta (R, A), dvalues (R,))."""
+    R = values.shape[0]
+    x = u.clamp(BETA_LO, BETA_HI)
+    lp = beta_log_prob(alpha, beta, u)
+    g_lp = _g_log_prob(grad_out, lp, old_log_probs, advs, clip_param)[:, None]
+    g_ent = (grad_out[3] - grad_out[0] * entropy_coef) / R
+    psi_ab = torch.digamma(alpha + beta)
+    s = (alpha + beta - 2) * torch.polygamma(1, alpha + beta)
+    dalpha = (g_lp * (torch.log(x) - torch.digamma(alpha) + psi_ab)
+              + g_ent * (s - (alpha - 1) * torch.polygamma(1, alpha)))
+    dbeta = (g_lp * (torch.log1p(-x) - torch.digamma(beta) + psi_ab)
+             + g_ent * (s - (beta - 1) * torch.polygamma(1, beta)))
+    return dalpha, dbeta, _d_values(grad_out, values, old_values, returns,
+                                    clip_param, clip_value_loss,
+                                    value_loss_coef)
+
+
+class PPOLossBeta(torch.autograd.Function):
+    """``apply(alpha, beta (R, 3), values, u (R, 3), old_log_probs,
+    old_values, returns, advs (R,), clip_param, clip_value_loss,
+    value_loss_coef, entropy_coef)`` → (loss, vloss, aloss, entropy)."""
+
+    @staticmethod
+    def forward(ctx, alpha, beta, values, u, old_log_probs, old_values,
+                returns, advs, *cfg):
+        rows = (alpha, beta, values, u, old_log_probs, old_values, returns,
+                advs)
+        ctx.save_for_backward(*rows)
+        ctx.cfg = cfg
+        if alpha.device.type == 'cpu':
+            return ppo_loss_beta_plain(*rows, *cfg)
+        R = alpha.shape[0]
+        lib = _build.library()
+        partials = torch.empty(lib.dcd_ppo_beta_workspace(R),
+                               dtype=torch.float64, device=alpha.device)
+        out = torch.empty(4, dtype=torch.float32, device=alpha.device)
+        rc = lib.dcd_ppo_beta_forward(
+            *(t.data_ptr() for t in rows), partials.data_ptr(),
+            out.data_ptr(), R, *_beta_flags(*cfg),
+            torch.cuda.current_stream(alpha.device).cuda_stream)
+        _build.check(rc, 'ppo_loss_beta forward')
+        ppo_loss_beta.launches += 2         # the rows, then the fold
+        return out.unbind()
+
+    @staticmethod
+    def backward(ctx, g_loss, g_v, g_a, g_e):
+        grad_out = torch.stack([g_loss, g_v, g_a, g_e]).float().contiguous()
+        rows = ctx.saved_tensors
+        alpha = rows[0]
+        if alpha.device.type == 'cpu':
+            da, db, dv = ppo_loss_beta_plain_backward(grad_out, *rows,
+                                                      *ctx.cfg)
+        else:
+            da, db = torch.empty_like(alpha), torch.empty_like(rows[1])
+            dv = torch.empty_like(rows[2])
+            rc = _build.library().dcd_ppo_beta_backward(
+                *(t.data_ptr() for t in rows), grad_out.data_ptr(),
+                da.data_ptr(), db.data_ptr(), dv.data_ptr(),
+                alpha.shape[0], *_beta_flags(*ctx.cfg),
+                torch.cuda.current_stream(alpha.device).cuda_stream)
+            _build.check(rc, 'ppo_loss_beta backward')
+            ppo_loss_beta.launches += 1
+            ppo_loss_beta.backward_launches += 1
+        return (da, db, dv) + (None,) * (5 + len(ctx.cfg))
+
+
+def ppo_loss_beta(alpha, beta, values, u, old_log_probs, old_values,
+                  returns, advs, clip_param: float, clip_value_loss: bool,
+                  value_loss_coef: float, entropy_coef: float):
+    """(loss, vloss, aloss, entropy) of alphas and betas (..., 3), the
+    actions unscaled to [0, 1] (..., 3) and values, old log-probs, old
+    values, returns and advantages of the leading shape; differentiable in
+    the alphas, the betas and the values.  CPU tensors take the twins,
+    CUDA tensors launch the kernels (``ppo_loss_beta.launches``: 2 a
+    forward pass, 1 a backward pass) or raise."""
+    A = alpha.shape[-1]
+    R = alpha.numel() // A
+    dev = alpha.device
+    if A != 3:
+        raise ValueError(f'ppo_loss_beta: 3 actions, got {A}')
+    rows = [alpha.reshape(R, A), beta.reshape(R, A), values.reshape(R),
+            u.reshape(R, A)] + [
+        t.reshape(R) for t in (old_log_probs, old_values, returns, advs)]
+    shapes = ((R, A), (R, A), (R,), (R, A), (R,), (R,), (R,), (R,))
+    names = ('alpha', 'beta', 'values', 'u', 'old_log_probs', 'old_values',
+             'returns', 'advs')
+    for name, t, shape in zip(names, rows, shapes):
+        _build.check_tensor(name, t, torch.float32, shape, dev)
+    return PPOLossBeta.apply(*rows, clip_param, clip_value_loss,
+                             value_loss_coef, entropy_coef)
+
+
+ppo_loss_beta.launches = 0
+ppo_loss_beta.backward_launches = 0

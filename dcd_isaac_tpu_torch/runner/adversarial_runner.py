@@ -10,8 +10,9 @@ host loop that picks them (:924-984).
     ``--no_exploratory_grad_updates``, ACCEL with ``--use_editor``): each
     cycle a coin on the buffer (``sample_replay_decision``) picks a
     generate cycle, whose N levels a uniform-random teacher builds
-    (``_random_design``, kernel B5; the walker, whose teacher is not
-    discrete, draws them with ``reset_random``) and which are staged,
+    (``_random_design``, kernel B5; the walker and CarRacing, whose
+    teachers are not discrete, draw them with ``reset_random``: B11, or
+    B13b's track build and B12's frame) and which are staged,
     scored and promoted into the buffer (PLR⊥ discards that cycle's
     gradients), or a
     replay cycle, which draws N levels from the buffer by their weights
@@ -28,9 +29,9 @@ host loop that picks them (:924-984).
     becomes the last reward of its rollout, and the teacher takes its own
     PPO update after both students.
 Each student phase runs GAE and the PPO update (recurrent, or flat for
-the walker's MLP).  With ``--normalize_returns`` the student's rewards go
-through VecNormalize, whose running statistics (``ret_rms``) carry across
-the generate, replay and edit cycles.  The cycle runs eagerly on the
+the walker's MLP and CarRacing's CNN).  With ``--normalize_returns`` the
+student's rewards go through VecNormalize, whose running statistics
+(``ret_rms``) carry across the generate, replay and edit cycles.  The cycle runs eagerly on the
 runner's device; ``run`` reads the coins and the stats back to the host.
 """
 
@@ -572,13 +573,19 @@ class AdversarialRunner:
         ``--log_replay_complexity``, 'plr_'-prefixed on replay cycles),
         else the latest ones again under PLR."""
         env_stats = env_stats or {}
-        keys = list(stats) + [f'_env_{k}' for k in env_stats]
-        vals = torch.stack([v.float() for v in (*stats.values(),
-                                                *env_stats.values())]
-                           ).tolist()
+        # device scalars in one read; an env's host-side stats (CarRacing's
+        # track complexity) arrive as floats
+        on_host = {k: v for k, v in env_stats.items()
+                   if not torch.is_tensor(v)}
+        keys = list(stats) + [f'_env_{k}' for k in env_stats
+                              if k not in on_host]
+        vals = torch.stack([v.float() for v in (
+            *stats.values(), *(v for k, v in env_stats.items()
+                               if k not in on_host))]).tolist()
         host = dict(zip(keys, vals))
         fresh = {k[len('_env_'):]: host.pop(k) for k in keys
                  if k.startswith('_env_')}
+        fresh.update(on_host)
         if fresh:
             prefix = 'plr_' if level_replay else ''
             fresh = {prefix + k: v for k, v in fresh.items()}

@@ -1,8 +1,8 @@
 """Training entry point of the port (dcd_isaac_tpu/train.py:26-131).
 
 ``python -m dcd_isaac_tpu_torch.train --env_name ... --ued_algo
-paired ...`` parses the port's arguments, builds the env (MultiGrid, or
-the walker's three training names), the models of ``--ued_algo``
+paired ...`` parses the port's arguments, builds the env (MultiGrid, the
+walker's three training names or CarRacing's two), the models of ``--ued_algo``
 (``make_all_models``) and the runner on the card (``--no_cuda true`` asks
 for the CPU) and runs cycles until ``--num_env_steps``, printing one JSON
 stats line per cycle.  With ``--use_plr true`` the runner keeps a PLR
@@ -29,7 +29,7 @@ from .utils.make_agent import make_all_models
 def setup(args) -> AdversarialRunner:
     """The runner that checked arguments build: env, models, device."""
     device = resolve_device('cpu' if args.no_cuda else None)
-    env = make_env(args.env_name)
+    env = make_env(args.env_name, args)
     init_gen = torch.Generator().manual_seed(args.seed)
     models = {role: model.to(device) for role, model in
               make_all_models(args, env, init_gen).items()}
@@ -41,7 +41,9 @@ def main(argv=None):
     args = check_args(parser.parse_args(argv))
     print(f'dcd_isaac_tpu_torch.train: no CSV log is written to '
           f'--log_dir {args.log_dir} yet (ROADMAP queue A.4); the stats go '
-          f'to stdout, one JSON line per cycle', file=sys.stderr)
+          f'to stdout, one JSON line per cycle; --test_env_names '
+          f'{args.test_env_names} and in-training evaluation wait for the '
+          f'same slice', file=sys.stderr)
     runner = setup(args)
 
     num_updates = args.num_env_steps // args.num_steps // args.num_processes

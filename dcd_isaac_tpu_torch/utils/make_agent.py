@@ -2,7 +2,8 @@
 
 The MultiGrid roles: the student ``agent``, the PAIRED antagonist
 ``adversary_agent`` (a second student) and the teacher ``adversary_env``;
-the walker's student (``models/walker_models.py``).
+the walker's student (``models/walker_models.py``) and CarRacing's
+(``models/car_racing_models.py``).
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..envs.registry import env_family
+from ..models.car_racing_models import make_carracing_model
 from ..models.multigrid_models import MultigridNetwork
 from ..models.walker_models import make_walker_model
 
@@ -20,6 +22,8 @@ def make_model(args, env, agent_type: str = 'agent',
     family = env_family(args.env_name)
     if family == 'walker':
         return make_walker_model(args, env, agent_type, generator)
+    if family == 'carracing':
+        return make_carracing_model(args, env, agent_type, generator)
     if family != 'multigrid':
         raise NotImplementedError(f'{family} models are not ported yet')
     if agent_type == 'adversary_env':

@@ -364,3 +364,50 @@ def test_plr_promote_float_levels(device):
     out = chip_smoke.check_plr_promote_float(device)
     assert pk.promote.launches == before + 8
     assert out['max_abs_err'] == 0.0
+
+
+# CarRacing's kernels: the checks are chip_smoke.py's, at more shapes.
+@pytest.mark.parametrize('n', [1, 37, 4096])
+def test_carracing_track_bit_exact(device, n):
+    """Kernel B13b (track build, start tile, car) against
+    ``build_level_plain`` bit for bit, n in [3, 12], start set and not."""
+    import chip_smoke
+    from dcd_isaac_tpu_torch.kernels import carracing_track
+    before = carracing_track.build.launches
+    out = chip_smoke.check_carracing_track(device, n)
+    torch.cuda.synchronize()
+    assert out['max_abs_err'] == 0.0
+    assert carracing_track.build.launches > before
+
+
+@pytest.mark.parametrize('tracks,cars', [(1, 3), (8, 64)])
+def test_carracing_render_bit_exact(device, tracks, cars):
+    """Kernel B12 against ``stack_frames_plain`` bit for bit: stack shift
+    and reset, t = 0, 0.5, 2, RGB and crop + grayscale."""
+    import chip_smoke
+    out = chip_smoke.check_carracing_render(device, tracks, cars)
+    assert out['max_abs_err'] == 0.0
+
+
+@pytest.mark.parametrize('sparse', [False, True])
+def test_carracing_step_matches_plain(device, sparse):
+    """Kernel B13a against ``step_dynamics_plain`` one control step at a
+    time (chip_smoke.CR_STEP_TOL on floats, the rest exact)."""
+    import chip_smoke
+    from dcd_isaac_tpu_torch.kernels import carracing_step
+    before = carracing_step.step.launches
+    out = chip_smoke.check_carracing_step(device, 40 if sparse else 125,
+                                          sparse)
+    assert out['max_abs_err'] <= chip_smoke.CR_STEP_TOL
+    assert carracing_step.step.launches == before + out['steps']
+
+
+@pytest.mark.parametrize('rows', [1, 500, 2000, 70_000])
+@pytest.mark.parametrize('clip_value_loss', [True, False])
+def test_ppo_loss_beta_matches_plain_and_repeats(device, rows,
+                                                 clip_value_loss):
+    """Kernel B7's Beta branch: the means within 1e-6 relative of the
+    float64 twin, the gradients at B7's tolerance, identical over two
+    runs."""
+    import chip_smoke
+    chip_smoke.check_ppo_loss_beta(rows, clip_value_loss, device)

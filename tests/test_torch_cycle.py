@@ -129,6 +129,16 @@ def test_train_entry_point_runs_dr_cycles(capsys):
     (['--log_action_complexity', 'true'], NotImplementedError),
     (['--checkpoint', 'true'], NotImplementedError),
     (['--archive_interval', '1'], NotImplementedError),
+    # CarRacing: the teacher, ACCEL's mutate_level, the evaluation tracks
+    # and checkpoints wait for later slices
+    (['--env_name', 'CarRacing-Bezier-Adversarial-v0', '--ued_algo',
+      'paired'], NotImplementedError),
+    (['--env_name', 'CarRacing-Bezier-Adversarial-v0', '--use_plr', 'true',
+      '--use_editor', 'true'], NotImplementedError),
+    (['--env_name', 'CarRacing-Vanilla-v0'], NotImplementedError),
+    (['--env_name', 'CarRacingF1-Italy-v0'], NotImplementedError),
+    (['--env_name', 'CarRacing-Bezier-Adversarial-v0', '--checkpoint',
+      'true'], NotImplementedError),
 ])
 def test_unported_settings_are_refused(flags, error):
     with pytest.raises(error):

@@ -52,6 +52,27 @@ def test_port_and_smoke_import_without_jax(order):
     assert int(proc.stdout.split()[-1]) >= 40
 
 
+# the CarRacing slice's modules, imported alone with JAX refused
+CARRACING_MODULES = (
+    'envs.carracing', 'envs.carracing.bezier', 'envs.carracing.track',
+    'envs.carracing.dynamics', 'envs.carracing.env',
+    'envs.carracing.adversarial', 'models.car_racing_models',
+    'kernels.carracing_track', 'kernels.carracing_render',
+    'kernels.carracing_step', 'utils.geo_complexity')
+
+
+@pytest.mark.parametrize('module', CARRACING_MODULES)
+def test_carracing_modules_import_without_jax(module):
+    code = IMPORT_ALL.split('import dcd_isaac_tpu_torch')[0] + (
+        f'import dcd_isaac_tpu_torch.{module}\n'
+        'leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]\n'
+        'assert not leaked, leaked\n')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_kernels_build_without_torch_headers():
     for src in glob.glob(os.path.join(ROOT, 'dcd_isaac_tpu_torch', 'csrc',
                                       '*')):
@@ -283,3 +304,68 @@ def test_walker_kernel_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match='at most 8'):
         pl.ppo_loss_gaussian(z(5, 9), z(9), z(5), z(5, 9), z(5), z(5),
                              z(5), z(5), 0.2, False, 0.5, 0.01)
+
+
+def test_carracing_kernel_wrappers_take_plain_twins_on_cpu(monkeypatch):
+    """Kernels B12, B13a, B13b and B7's Beta branch on CPU tensors: the
+    plain twins, no build, no launch counted."""
+    from dcd_isaac_tpu_torch.envs.carracing.adversarial import (
+        AdversarialCarRacing, build_level_plain,
+    )
+    from dcd_isaac_tpu_torch.envs.carracing.env import (
+        CarRacingConfig, stack_frames_plain, step_dynamics_plain,
+    )
+    from dcd_isaac_tpu_torch.kernels import carracing_render as cr
+    from dcd_isaac_tpu_torch.kernels import carracing_step as cs
+    from dcd_isaac_tpu_torch.kernels import carracing_track as ct
+    from dcd_isaac_tpu_torch.kernels import ppo_loss as pl
+    _no_build(monkeypatch)
+    counts = (ct.build.launches, cr.render.launches, cs.step.launches,
+              pl.ppo_loss_beta.launches)
+    env = AdversarialCarRacing()
+    state, _ = env.reset_random(2, torch.Generator().manual_seed(0), 'cpu')
+    cfg = CarRacingConfig()
+    cps, n, alpha, _, _ = env.decode_level(env.get_level(state))
+    got, want = ct.build(cps, n, alpha), build_level_plain(cps, n, alpha)
+    assert torch.equal(got[0].points, want[0].points)
+    a = torch.rand(2, 3)
+    got, want = cs.step(cfg, state, a), step_dynamics_plain(cfg, state, a)
+    assert all(torch.equal(x, y) for x, y in zip(got[1:], want[1:]))
+    assert torch.equal(
+        cr.render(cfg, state.car, state.track, state.t, state.frames),
+        stack_frames_plain(cfg, state.car, state.track, state.t,
+                           state.frames))
+    x = [1 + torch.rand(5, 3), 1 + torch.rand(5, 3), torch.rand(5),
+         torch.rand(5, 3)] + [torch.rand(5) for _ in range(4)]
+    assert all(torch.equal(p, q) for p, q in zip(
+        pl.ppo_loss_beta(*x, 0.2, False, 0.5, 0.01),
+        pl.ppo_loss_beta_plain(*x, 0.2, False, 0.5, 0.01)))
+    assert counts == (ct.build.launches, cr.render.launches,
+                      cs.step.launches, pl.ppo_loss_beta.launches)
+
+
+def test_carracing_kernel_wrappers_never_fall_back_off_the_cpu(monkeypatch):
+    from dcd_isaac_tpu_torch.envs.carracing.adversarial import (
+        AdversarialCarRacing,
+    )
+    from dcd_isaac_tpu_torch.envs.carracing.env import CarRacingConfig
+    from dcd_isaac_tpu_torch.kernels import carracing_render as cr
+    from dcd_isaac_tpu_torch.kernels import carracing_step as cs
+    from dcd_isaac_tpu_torch.kernels import carracing_track as ct
+    from dcd_isaac_tpu_torch.kernels import ppo_loss as pl
+    env = AdversarialCarRacing()
+    state, _ = env.reset_random(2, torch.Generator().manual_seed(0), 'cpu')
+    _no_build(monkeypatch)
+    meta = _to(state, 'meta')
+    cfg = CarRacingConfig()
+    z = lambda *s: torch.zeros(s, device='meta')
+    for call in (
+            lambda: ct.build(z(2, 12, 2), z(2).int(), z(2)),
+            lambda: cs.step(cfg, meta, z(2, 3)),
+            lambda: cr.render(cfg, meta.car, meta.track, meta.t,
+                              meta.frames),
+            lambda: pl.ppo_loss_beta(z(5, 3), z(5, 3), z(5), z(5, 3), z(5),
+                                     z(5), z(5), z(5), 0.2, False, 0.5,
+                                     0.01)):
+        with pytest.raises(RuntimeError, match='kernel build requested'):
+            call()

@@ -95,6 +95,14 @@ def _eval_no_fma(jaxpr, consts, *args):
     for v, a in zip(jaxpr.invars, args):
         env[v] = a
     for eqn in jaxpr.eqns:
+        if eqn.primitive.name == 'custom_jvp_call':
+            # a custom JVP (softplus's logaddexp): its primal jaxpr inline
+            cj = eqn.params['call_jaxpr']
+            outs = _eval_no_fma(cj.jaxpr, cj.consts,
+                                *[read(v) for v in eqn.invars])
+            for v, o in zip(eqn.outvars, outs):
+                env[v] = o
+            continue
         params = {k: _sub_jaxprs(p) for k, p in eqn.params.items()}
         out = eqn.primitive.bind(*[read(v) for v in eqn.invars], **params)
         if (eqn.primitive.name == 'mul'
