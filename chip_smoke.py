@@ -30,12 +30,20 @@ Phases, each printing one JSON line with its wall time:
      buffers) at S = 4000, T = 256, N = 32, each bit-identical over two
      runs and within 1e-6 of its twin, and the level edits
      (``multigrid_edit``: ``mutate`` for each editor action set and
-     ``reset_random``) bit-exact; one small DR, PAIRED and ACCEL
-     (generate, replay, edit) sequence on the card against the same on the
-     CPU (plain twins) with their random draws injected; one whole PAIRED
-     cycle of bench.py's workload (N = 8192, T = 256; B4's backward in row
-     chunks) with its phase split, launch counts and peak device memory,
-     which must stay under half the card; the walker's kernels against
+     ``reset_random``) bit-exact; the student's fused policy step
+     (``policy_step``, B2) in its four modes at B = 32 and 8192 (logits,
+     value, carry, log-probs within 1e-5 relative, the sampled actions
+     equal away from a CDF entry, the rows near one counted); B4's
+     backward kernels (``teacher_proj_backward``: dW, the conv gradients,
+     g_e) at (B, N) = (864, 1024), (864, 64), (1664, 1024) within 1e-5 of
+     the twin's largest entry plus 1e-5 relative, identical over two runs;
+     one small DR, PAIRED, ACCEL (generate, replay, edit), REPAIRED
+     (generate, replay, generate; both buffers) and minimax sequence on
+     the card against the same on the CPU (plain twins) with their random
+     draws injected; one whole PAIRED cycle of bench.py's workload (N =
+     8192, T = 256; B2 in the rollouts, B4's backward kernels in the
+     teacher update) with its phase split, launch counts and peak device
+     memory, which must stay under half the card; the walker's kernels against
      their twins (``walker_vs_plain``: B11's terrain and placement bit for
      bit on 1024 levels each of the full, easy and POET ranges and five
      terrain kinds, B10 one step at a time from 120 states of 64 walkers
@@ -66,7 +74,12 @@ Phases, each printing one JSON line with its wall time:
      edit cycle) and one cycle by the runner's own coin; two PAIRED cycles
      at the settings of mg_25b_paired.json (N = 32, T = 256, LSTM-256 for
      both students and the teacher, 5 PPO epochs, fp32), and one PAIRED
-     cycle on bench.py's MultiGrid-Adversarial-v0;
+     cycle on bench.py's MultiGrid-Adversarial-v0; REPAIRED
+     (mg_25b_repaired.json: both buffers of 4000 filled to rho through
+     promote_staged, a generate and a replay cycle, the replay's teacher
+     update on the stored rollout, and a coin cycle) and two minimax
+     cycles (mg_25b_minimax.json) through the training entry point, the
+     teacher without a core (B4 at N = 64);
      ``walker_cycles``: bipedal_accel.json at full width (N = 16,
      T = 2048, the MLP student, 5 epochs of 32 minibatches, VecNormalize,
      S = 1000 filled to rho through promote_staged) for a generate and a
@@ -162,6 +175,27 @@ ACCEL_ARGS = PLR_COMMON + [
     '--level_editor_prob', '1.0', '--level_editor_method', 'random',
     '--num_edits', '5', '--base_levels', 'easy']
 PLR_S = 4000
+# mg_25b_repaired.json (PAIRED with PLR⊥ on both students, a teacher
+# without a core) and mg_25b_minimax.json without the A.4 flags.
+TEACHER_COMMON = [
+    '--env_name', ENV_NAME, '--num_processes', '32', '--num_steps', '256',
+    '--ppo_epoch', '5', '--num_mini_batch', '1', '--handle_timelimits', 'true',
+    '--lr', '1e-4', '--gamma', '0.995', '--adv_entropy_coef', '0.0',
+    '--recurrent_arch', 'lstm', '--recurrent_agent', 'true',
+    '--recurrent_adversary_env', 'false', '--recurrent_hidden_size', '256',
+    '--log_plr_buffer_stats', 'true', '--log_replay_complexity', 'true',
+    '--reject_unsolvable_seeds', 'false', '--seed', '1']
+REPAIRED_ARGS = TEACHER_COMMON + [
+    '--ued_algo', 'paired', '--entropy_coef', '0.0', '--use_plr', 'true',
+    '--level_replay_prob', '0.95', '--level_replay_rho', '0.5',
+    '--level_replay_seed_buffer_size', str(PLR_S),
+    '--level_replay_temperature', '0.1',
+    '--level_replay_strategy', 'grounded_signed_value_loss',
+    '--level_replay_score_transform', 'rank', '--staleness_coef', '0.3',
+    '--no_exploratory_grad_updates', 'true']
+MINIMAX_ARGS = TEACHER_COMMON + [
+    '--ued_algo', 'minimax', '--entropy_coef', '0.01',
+    '--num_env_steps', str(2 * 32 * 256)]
 EDIT_ENVS = ('MultiGrid-GoalLastFewerBlocksAdversarial-EditWN-v0',
              'MultiGrid-GoalLastEmptyAdversarialEnv-Edit-v0',
              'MultiGrid-GoalLastFewerBlocksAdversarial-v0',
@@ -500,10 +534,119 @@ def teacher_inputs(batch: int, device, seed: int = 0):
             teacher.core.w_i.weight.detach())
 
 
+def fmaf(a, b, c):
+    """CUDA's ``fmaf(a, b, c)`` of float32 tensors: a * b + c rounded once
+    to float32.  The product is exact in double; the sum ``s`` rounds
+    there, and where ``s`` falls halfway between two floats its rounding
+    error (TwoSum) says which way the exact sum lies."""
+    import torch
+    p, cd = a.double() * b.double(), c.double()
+    s = p + cd
+    z = s - p
+    err = (p - (s - z)) + (cd - z)
+    r = s.float()
+    d = s - r.double()
+    away = torch.nextafter(r, torch.where(d > 0, math.inf, -math.inf)
+                           .to(r.dtype))
+    tie = (d != 0) & (away.double() - s == d)
+    return torch.where(tie & (err * d > 0), away, r)
+
+
+# The forward error bound of the kernel's 28-term fmaf chain (bias, then
+# 27 products), relative to |b| + sum |w| |x|: gamma_27 = 27 u / (1 - 27 u).
+CONV_PRE_GAMMA = 27 * 2.0 ** -24 / (1 - 27 * 2.0 ** -24)
+# Pre-activations within this share of their scale get the kernel's
+# order emulated exactly; beyond it the kernel's sign is the exact one.
+CONV_PRE_NEAR = 1e-5
+
+
+def kernel_conv_grads(img, conv_w, conv_b, e, w_i, grad):
+    """The conv weight and bias gradients of the projection with ReLU'
+    taken as the kernels take it: from the pre-activation summed in their
+    order (``csrc/teacher_proj.cu`` ``conv_pre``: the bias, then fmaf over
+    q = (ci, di, dj) of w and byte / 10 rounded once).  Elsewhere it is
+    the plain computation (dA = g W_i by matmul, the weight gradient by
+    ``conv2d_weight``), in the twin's row chunks.
+
+    The pre-activation is computed in double (exact but for 28 ulps of
+    double); where it lies within ``CONV_PRE_NEAR`` of its scale the
+    kernel's fp32 chain is replayed by :func:`fmaf`, and beyond it the
+    kernel's sign is the exact one (its error is at most
+    ``CONV_PRE_GAMMA`` of the scale).  Returns the two gradients and a
+    witness: the entries replayed, those whose kernel sign differs from
+    the exact one (each within ``CONV_PRE_GAMMA`` of the scale, checked)
+    and those whose mask differs from the twin's cuDNN pre-activation
+    (``relu(conv)`` > 0, the twin's ReLU'), with the largest |pre| /
+    scale among them and the first few entries."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from dcd_isaac_tpu_torch.kernels import teacher_proj as tp
+    C = conv_w.shape[0]
+    ox, oy = img.shape[1] - 2, img.shape[2] - 2
+    kc = ox * oy * C
+    lut = torch.from_numpy(np.arange(256, dtype=np.float32)
+                           / np.float32(10.0)).to(img.device)
+    rows = max(1, int(tp.CHUNK_BYTES // (4 * w_i.shape[1])))
+    g_w, g_b = torch.zeros_like(conv_w), torch.zeros_like(conv_b)
+    wit = {'replayed': 0, 'kernel_vs_exact': 0, 'kernel_vs_twin': 0,
+           'max_flip_pre_over_scale': 0.0,
+           'rounding_bound_over_scale': CONV_PRE_GAMMA, 'flips': []}
+    for r in range(0, img.shape[0], rows):
+        x = lut[img[r:r + rows].long()].permute(0, 3, 1, 2)
+        with torch.no_grad():
+            pre = F.conv2d(x.double(), conv_w.double(), conv_b.double())
+            scale = F.conv2d(x, conv_w.abs(), conv_b.abs())
+            mask = pre > 0
+            near = (pre.abs() <= CONV_PRE_NEAR * scale).nonzero()
+            b, c, i, j = near.unbind(1)
+            v = conv_b[c]
+            for q in range(27):
+                ci, di, dj = q // 9, (q // 3) % 3, q % 3
+                v = fmaf(conv_w[c, ci, di, dj], x[b, ci, i + di, j + dj], v)
+            at = (b, c, i, j)
+            off = (v > 0) != mask[at]
+            if (pre[at][off].abs() > CONV_PRE_GAMMA * scale[at][off]).any():
+                raise AssertionError('kernel_conv_grads: the replayed fp32 '
+                                     'chain is off its error bound')
+            mask[at] = v > 0
+            wit['replayed'] += len(v)
+            wit['kernel_vs_exact'] += int(off.sum())
+            twin = tp.embed_plain(img[r:r + rows], conv_w, conv_b,
+                                  e[r:r + rows])[:, :kc].view(
+                -1, ox, oy, C).permute(0, 3, 1, 2) > 0
+            flips = (twin != mask).nonzero()
+            wit['kernel_vs_twin'] += len(flips)
+            if len(flips):
+                fb, fc, fi, fj = flips.unbind(1)
+                ratio = (pre[fb, fc, fi, fj].abs()
+                         / scale[fb, fc, fi, fj]).tolist()
+                wit['max_flip_pre_over_scale'] = max(
+                    wit['max_flip_pre_over_scale'], *ratio)
+                for (fb_, fc_, fi_, fj_), ratio_ in zip(flips.tolist(),
+                                                        ratio):
+                    if len(wit['flips']) < 8:
+                        wit['flips'].append({
+                            'row': r + fb_, 'pixel': [fi_, fj_],
+                            'channel': fc_, 'kernel_mask': bool(
+                                mask[fb_, fc_, fi_, fj_]),
+                            'pre_exact': float(pre[fb_, fc_, fi_, fj_]),
+                            'pre_over_scale': ratio_})
+            da = (grad[r:r + rows] @ w_i[:, :kc]).view(
+                -1, ox, oy, C).permute(0, 3, 1, 2) * mask
+            g_w += torch.nn.grad.conv2d_weight(x, conv_w.shape, da)
+            g_b += da.sum((0, 2, 3))
+    return g_w, g_b, wit
+
+
 def check_teacher_proj(batch: int, device) -> dict:
     """Kernel B4 and its autograd gradients against the plain twin within
     rtol = atol = 1e-4: each output sums 21 692 fp32 products, in another
-    order than cuBLAS and cuDNN sum them."""
+    order than cuBLAS and cuDNN sum them.  The conv gradients are held
+    against the twin with the kernels' ReLU' (``kernel_conv_grads``): a
+    pre-activation within rounding of zero may take the other side in
+    cuDNN's order: ``conv_twin_gap`` is the kernel's gap to the twin,
+    ``conv_flips_part`` what those flips alone move."""
     import torch
     from dcd_isaac_tpu_torch.kernels.teacher_proj import (
         teacher_proj, teacher_proj_plain,
@@ -522,15 +665,22 @@ def check_teacher_proj(batch: int, device) -> dict:
     (out, grads), (want, want_grads) = errs['kernel'], errs['plain']
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
     names = ('conv_w', 'conv_b', 'e', 'w_i')
-    for k, a, b in zip(names, grads, want_grads):
+    *ref_conv, witness = kernel_conv_grads(img, *weights, g_out)
+    refs = (*ref_conv, *want_grads[2:])
+    for k, a, b in zip(names, grads, refs):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
                                    msg=lambda m: f'grad {k}: {m}')
     return {'B': batch, 'max_abs_err': float((out - want).abs().max()),
             'max_abs_out': float(want.abs().max()),
             'grad_max_abs_err': {k: float((a - b).abs().max()) for k, a, b
-                                 in zip(names, grads, want_grads)},
+                                 in zip(names, grads, refs)},
             'grad_max_abs': {k: float(b.abs().max())
-                             for k, b in zip(names, want_grads)}}
+                             for k, b in zip(names, refs)},
+            'conv_twin_gap': {k: float((a - b).abs().max()) for k, a, b
+                              in zip(names[:2], grads, want_grads)},
+            'conv_flips_part': {k: float((a - b).abs().max()) for k, a, b
+                                in zip(names[:2], ref_conv, want_grads)},
+            'relu_mask': witness}
 
 
 def near_goal_moves(rng, n, interior=13, n_walls=25):
@@ -1537,6 +1687,97 @@ def time_teacher_kernels(device) -> dict:
     return out
 
 
+def policy_step_work(w, B) -> tuple:
+    """(bytes, fp32 operations) of a sample-mode B2 step of B rows: the
+    weights and each row's view, direction, carry, mask and uniform read
+    once, its logits, value, carry, action and log-prob written once; the
+    conv, the gate product, the cell, the trunks and heads, the softmax."""
+    H, F = w.w_h.shape[1], w.w_i.shape[1]
+    A, conv = w.actor[4].shape[0], w.w_i.shape[1] - 5
+    weight_bytes = 4 * sum(t.numel() for t in (
+        w.conv_w, w.conv_b, w.emb_w, w.emb_b, w.w_i, w.w_h, w.b_h, *w.actor,
+        *w.critic))
+    row = (75 + 4 + 2 * 4 * H + 4 + 4) + (4 * A + 4 + 2 * 4 * H + 8 + 4)
+    flops = B * (2 * (conv * 27 + F * 4 * H + H * 4 * H + H * 64 + 32 * 64
+                      + 32 * (A + 1)) + 10 * H + 10 * A)
+    return weight_bytes + B * row, flops
+
+
+def teacher_proj_backward_work(img, e, w_i, parts=3) -> tuple:
+    """(bytes, fp32 operations) of B4's backward (``parts`` 1 dW, 2 dA,
+    3 both): the image, e, W_i, the upstream gradient and the conv weights
+    read once, dW, g_e and the conv gradients written once; the products
+    2 B N K each, the conv recomputed (2 B conv_dim 27, needed for ReLU')
+    and reduced into its gradients (2 B conv_dim 28)."""
+    B, N, K, E = img.shape[0], w_i.shape[0], w_i.shape[1], e.shape[1]
+    conv_dim, C = K - E, 128
+    read = img.numel() + 4 * (N * K + B * N + C * 28)
+    dw = (4 * N * K, 2 * B * N * K)
+    da = (4 * (B * E + C * 28) + 4 * B * E,
+          2 * B * N * K + 2 * B * conv_dim * (27 + 28))
+    nbytes = read + (dw[0] if parts & 1 else 0) + (da[0] if parts & 2 else 0)
+    flops = (dw[1] if parts & 1 else 0) + (da[1] if parts & 2 else 0)
+    return nbytes, flops
+
+
+def time_policy_kernels(device) -> dict:
+    """Kernel B2 at a rollout's B = 32 and at bench.py's B = 8192 (sample
+    mode; the value mode at B = 32), with its twin and bound."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels.policy_step import (
+        policy_step, policy_step_plain,
+    )
+    out = {}
+    with torch.no_grad():
+        for B, inner in ((MAIN_N, 200), (BENCH_SIZE_N, 20)):
+            w, x = policy_inputs(B, device)
+            args = (x['image'], x['direction'], x['c'], x['h'], x['mask'], w)
+            b_ms, b_by = bound(*policy_step_work(w, B))
+            suffix = '' if B == MAIN_N else f'_b{B}'
+            out.update({
+                f'ms{suffix}': graph_ms(
+                    lambda: policy_step(*args, 'sample', u=x['u']), inner),
+                f'plain_ms{suffix}': device_ms(
+                    lambda: policy_step_plain(*args, 'sample', u=x['u']), 1,
+                    20),
+                f'bound_ms{suffix}': b_ms, f'bound_by{suffix}': b_by})
+            if B == MAIN_N:
+                out['ms_value_mode'] = graph_ms(
+                    lambda: policy_step(*args, 'value'), inner)
+    return {'policy_step': out}
+
+
+def time_teacher_backward(device) -> dict:
+    """B4's backward (dW, dA and both) at the teacher updates' shapes: B =
+    27 * 32 rows for N = 1024 (the recurrent teacher) and N = 64 (the
+    teacher without a core), and bench.py's B = 52 * 8192 at N = 1024,
+    with the twin and the bound."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels import teacher_proj as tp
+    out = {}
+    for batch, n_out, samples in ((27 * MAIN_N, 1024, 10),
+                                  (27 * MAIN_N, 64, 10),
+                                  (52 * BENCH_SIZE_N, 1024, 2)):
+        args = teacher_backward_inputs(batch, n_out, device)
+        img, _, _, e, w_i, _ = args
+        suffix = '' if (batch, n_out) == (27 * MAIN_N, 1024) else (
+            f'_n{n_out}' if batch == 27 * MAIN_N else f'_b{batch}')
+        for name, parts in (('', 3), ('_dw', 1), ('_da', 2)):
+            b_ms, b_by = bound(*teacher_proj_backward_work(img, e, w_i,
+                                                           parts))
+            out.update({
+                f'ms{name}{suffix}': device_ms(
+                    lambda: tp._launch_backward(*args, parts=parts), 1,
+                    samples),
+                f'bound_ms{name}{suffix}': b_ms,
+                f'bound_by{name}{suffix}': b_by})
+        out[f'plain_ms{suffix}'] = device_ms(
+            lambda: tp.teacher_proj_backward_plain(*args), 1, samples)
+        del args, img, e, w_i
+        torch.cuda.empty_cache()
+    return {'teacher_proj_backward': out}
+
+
 def time_training_kernels(device) -> dict:
     """Kernels B3 and B7 on the update path, with their plain twins and
     bounds: B3's forward pass and its backward pass (the recompute and dh
@@ -1962,22 +2203,288 @@ def check_accel_against_cpu(device) -> dict:
 
 def fill_plr_buffer(runner) -> float:
     """Promote random-design levels (random scores, one completed episode
-    each) into the runner's buffer until it is filled to rho; returns the
-    proportion filled."""
+    each) into the runner's buffer, and REPAIRED's antagonist's, until each
+    is filled to rho; returns the protagonist's proportion filled."""
     import torch
     from dcd_isaac_tpu_torch.level_replay import plr
     cfg = runner.plr_cfg
     n = runner.args.num_processes
     g = torch.Generator(device=runner.device)
     g.manual_seed(5)
-    while float(plr.proportion_filled(runner.plr_buffer)) < cfg.rho:
-        states = runner._random_design()
-        runner.plr_buffer = plr.promote_staged(
-            runner.plr_buffer, cfg, runner.env.get_level(states),
-            torch.rand((n,), generator=g, device=runner.device),
-            torch.ones((n,), device=runner.device),
-            staged_solvable=states.passable)
+    for attr in ('plr_buffer', 'plr_antagonist'):
+        while (getattr(runner, attr) is not None and float(
+                plr.proportion_filled(getattr(runner, attr))) < cfg.rho):
+            states = runner._random_design()
+            setattr(runner, attr, plr.promote_staged(
+                getattr(runner, attr), cfg, runner.env.get_level(states),
+                torch.rand((n,), generator=g, device=runner.device),
+                torch.ones((n,), device=runner.device),
+                staged_solvable=states.passable))
     return float(plr.proportion_filled(runner.plr_buffer))
+
+
+def policy_inputs(B, device, seed=0):
+    """Kernel B2's inputs at the main path's widths: the weights of a
+    freshly built student (LSTM-256) with every entry moved by noise, so
+    the biases are not zero; random views, directions, carries, masks
+    (about one in ten 0), uniforms and actions."""
+    import torch
+    from dcd_isaac_tpu_torch.arguments import parser
+    from dcd_isaac_tpu_torch.envs.registry import make_env
+    from dcd_isaac_tpu_torch.utils.make_agent import make_model
+    env = make_env(ENV_NAME)
+    net = make_model(parser.parse_args(PAIRED_ARGS), env, 'agent',
+                     torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    net = net.to(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    H = net.recurrent_hidden_size
+    x = {'image': torch.randint(0, 11, (B, 5, 5, 3), generator=g,
+                                device=device, dtype=torch.uint8),
+         'direction': torch.randint(0, 4, (B,), generator=g, device=device,
+                                    dtype=torch.int32),
+         'c': torch.randn((B, H), generator=g, device=device),
+         'h': torch.randn((B, H), generator=g, device=device),
+         'mask': (torch.rand((B,), generator=g, device=device) > 0.1).float(),
+         'u': torch.rand((B,), generator=g, device=device),
+         'action': torch.randint(0, 7, (B,), generator=g, device=device)}
+    with torch.no_grad():
+        w = net.policy_weights()
+    return w, x
+
+
+def check_policy_step(B, device) -> dict:
+    """Kernel B2 against its twin on the card in its four modes: logits,
+    value, carry and log-probs within 1e-5 relative (|a - b| <= 1e-5 (|b|
+    + max|b|): each output sums up to 405 fp32 products in another order
+    than cuBLAS and cuDNN); the sampled actions equal wherever the twin's
+    CDF is more than 1e-5 from the uniform (the rows nearer are counted)."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels.policy_step import (
+        MODES, policy_step, policy_step_plain,
+    )
+    w, x = policy_inputs(B, device)
+    args = (x['image'], x['direction'], x['c'], x['h'], x['mask'], w)
+    err = rel = 0.0
+    near = 0
+    with torch.no_grad():
+        for mode in MODES:
+            kw = {'u': x['u']} if mode == 'sample' else (
+                {'action': x['action']} if mode == 'action' else {})
+            got = policy_step(*args, mode, **kw)
+            want = policy_step_plain(*args, mode, **kw)
+            torch.cuda.synchronize()
+            for name, a, b in zip(got._fields, got, want):
+                if (a is None) != (b is None):
+                    raise AssertionError(f'policy_step {mode}: {name} '
+                                         f'written by one side only')
+                if a is None:
+                    continue
+                if name == 'action':
+                    cdf = torch.softmax(want.logits.double(), -1).cumsum(-1)
+                    clear = ((cdf - x['u'].double()[:, None]).abs()
+                             .min(-1).values > 1e-5)
+                    near += int((~clear).sum()) if mode == 'sample' else 0
+                    if not torch.equal(a[clear], b[clear]):
+                        raise AssertionError(f'policy_step {mode}: actions '
+                                             f'differ')
+                    continue
+                for t_a, t_b in (zip(a, b) if name == 'carry' else [(a, b)]):
+                    d = (t_a - t_b).abs()
+                    tol = 1e-5 * (t_b.abs() + t_b.abs().max())
+                    if not (d <= tol).all():
+                        top = float(t_b.abs().max())
+                        raise AssertionError(
+                            f'policy_step {mode} B={B}: {name} off by '
+                            f'{float(d.max())} (largest {top})')
+                    err = max(err, float(d.max()))
+                    rel = max(rel, float((d / t_b.abs().max()).max()))
+    return {'B': B, 'max_abs_err': err, 'max_err_of_largest': rel,
+            'rows_within_1e-5_of_a_cdf_entry': near}
+
+
+def teacher_backward_inputs(batch, n_out, device, seed=0):
+    """B4's backward inputs: ``teacher_inputs`` with W the recurrent
+    teacher's LSTM input (N = 1024) or, from a freshly built
+    mg_25b_repaired teacher (no core), its stacked first trunk layers
+    (N = 64), and a random upstream gradient."""
+    import torch
+    from dcd_isaac_tpu_torch.arguments import parser
+    from dcd_isaac_tpu_torch.envs.registry import make_env
+    from dcd_isaac_tpu_torch.utils.make_agent import make_model
+    img, conv_w, conv_b, e, w_i = teacher_inputs(batch, device, seed)
+    if n_out == 64:
+        t = make_model(parser.parse_args(REPAIRED_ARGS), make_env(ENV_NAME),
+                       'adversary_env', torch.Generator().manual_seed(seed))
+        w_i = torch.cat([t.actor_trunk[0].weight, t.critic_trunk[0].weight]
+                        ).detach().to(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 3)
+    grad = torch.randn((batch, w_i.shape[0]), generator=g, device=device)
+    return img, conv_w, conv_b, e, w_i, grad
+
+
+def check_teacher_proj_backward(batch, n_out, device) -> dict:
+    """B4's backward kernels against the twin (the chunked autograd
+    backward) on the card, dW and g_e within 1e-5 of the twin's largest
+    entry plus 1e-5 relative (sums of up to 425 984 rows or 21 692
+    products, as B7's gradients are tied to their scale); the conv
+    gradients the same against the twin with the kernels' ReLU'
+    (``kernel_conv_grads``); ``twin_gap`` is the gap to the twin itself
+    and ``flips_part`` what the ReLU' flips alone move.  Two runs give the
+    same bits."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels import teacher_proj as tp
+    args = teacher_backward_inputs(batch, n_out, device)
+    got = tp._launch_backward(*args)
+    again = tp._launch_backward(*args)
+    want = tp.teacher_proj_backward_plain(*args)
+    *ref_conv, witness = kernel_conv_grads(*args)
+    torch.cuda.synchronize()
+    res = {'B': batch, 'N': n_out, 'relu_mask': witness}
+    for name, a, a2, b, twin in zip(('conv_w', 'conv_b', 'e', 'w_i'), got,
+                                    again, (*ref_conv, *want[2:]), want):
+        if not torch.equal(a, a2):
+            raise AssertionError(f'teacher_proj backward {name}: two runs '
+                                 f'differ')
+        d = (a - b).abs()
+        top = float(b.abs().max())
+        if not (d <= 1e-5 * top + 1e-5 * b.abs()).all():
+            raise AssertionError(f'teacher_proj backward B={batch} '
+                                 f'N={n_out}: {name} off by {float(d.max())}'
+                                 f' (largest {top})')
+        res[name] = {'max_abs_err': float(d.max()), 'max_abs': top,
+                     'twin_gap': float((a - twin).abs().max()),
+                     'flips_part': float((b - twin).abs().max())}
+    res['max_abs_err'] = max(v['max_abs_err'] for k, v in res.items()
+                             if k in ('conv_w', 'conv_b', 'e', 'w_i'))
+    return res
+
+
+def check_repaired_against_cpu(device) -> dict:
+    """A small REPAIRED sequence (generate, replay, generate; N = 8, T =
+    16, S = 64, LSTM-32 students, the teacher without a core, 6-step
+    episodes) and one minimax cycle, on the card and on the CPU from the
+    same weights, teacher moves and draws, actions, replay seeds and
+    permutations.  Both buffers must agree (levels, ids and masks exactly,
+    floats within 1e-5) and so must every model's weight change (1e-5),
+    with a change beyond that."""
+    import numpy as np
+    import torch
+    from dcd_isaac_tpu_torch.arguments import parser
+    from dcd_isaac_tpu_torch.envs.multigrid.adversarial import (
+        AdversarialMultiGrid,
+    )
+    from dcd_isaac_tpu_torch.envs.multigrid.core import MultiGridParams
+    from dcd_isaac_tpu_torch.runner.adversarial_runner import (
+        AdversarialRunner,
+    )
+    from dcd_isaac_tpu_torch.utils.make_agent import make_all_models
+    n, t, S = 8, 16, 64
+    small = ['--num_processes', str(n), '--num_steps', str(t),
+             '--recurrent_hidden_size', '32']
+    env = AdversarialMultiGrid(MultiGridParams(
+        size=15, n_clutter=25, choose_goal_last=True, max_steps=6))
+    T = env.adversary_rollout_steps
+    rng = np.random.default_rng(0)
+    f32 = lambda *s: torch.tensor(rng.random(s), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    students = ('agent', 'adversary_agent')
+    cycles = []
+    for _ in range(3):
+        cycles.append({
+            'moves': torch.tensor(near_goal_moves(rng, n)),
+            'u': f32(T, n, 3), 'z': f32(T, n, 50),
+            'reset': {'start_dir': torch.tensor(rng.integers(0, 4, n)),
+                      'random_z': f32(n, 50)},
+            'acts': {r: torch.tensor(rng.integers(0, 3, (t, n)))
+                     for r in students},
+            'perms': {**{r: torch.stack([torch.randperm(n, generator=gen)
+                                         for _ in range(5)])
+                         for r in students},
+                      'adversary_env': torch.stack([
+                          torch.randperm(T * n, generator=gen)
+                          for _ in range(5)])}})
+
+    def inject(c, dev, roles):
+        script = lambda a: (lambda logits, k: a[k].to(dev))
+        kw = dict(
+            sample_action_fn=script(c['acts']['agent']),
+            teacher_sample_fn=script(c['moves']),
+            teacher_draws_fn=lambda k: {'u': c['u'][k].to(dev),
+                                        'random_z': c['z'][k].to(dev)},
+            reset_draws={k: v.to(dev) for k, v in c['reset'].items()},
+            perms={r: p.to(dev) for r, p in c['perms'].items()
+                   if r in roles})
+        if 'adversary_agent' in roles:
+            kw['antagonist_sample_fn'] = script(c['acts']['adversary_agent'])
+        return kw
+
+    def replay_draws(buf, stride):
+        filled = buf.filled.nonzero().flatten().cpu()
+        seeds = filled[torch.arange(n) % filled.numel()]
+        resets = filled[(torch.arange(t * n) * stride)
+                        % filled.numel()].view(t, n)
+        return seeds, resets
+
+    res = {}
+    for name, argv in (('repaired', REPAIRED_ARGS), ('minimax',
+                                                     MINIMAX_ARGS)):
+        args = parser.parse_args(argv + small + [
+            '--level_replay_seed_buffer_size', str(S)])
+        out = []
+        for dev in ('cpu', device):
+            models = {r: m.to(dev) for r, m in make_all_models(
+                args, env, torch.Generator().manual_seed(1)).items()}
+            before = weights(models)
+            runner = AdversarialRunner(args, env, models, dev)
+            stats = []
+            kinds = ('generate', 'replay', 'generate') if name == 'repaired' \
+                else ('generate',)
+            for c, kind in zip(cycles, kinds):
+                kw = inject(c, dev, models)
+                if name == 'repaired':
+                    kw['replay'] = kind == 'replay'
+                if kind == 'replay':
+                    sa, ra = replay_draws(runner.plr_buffer, 7)
+                    sb, rb = replay_draws(runner.plr_antagonist, 5)
+                    kw.update(
+                        replay_seeds=sa.to(dev),
+                        replay_reset_seeds=lambda k: ra[k].to(dev),
+                        antagonist_replay_seeds=sb.to(dev),
+                        antagonist_replay_reset_seeds=lambda k: rb[k].to(dev))
+                stats.append(runner.run(**kw))
+            bufs = {}
+            for attr in ('plr_buffer', 'plr_antagonist'):
+                buf = getattr(runner, attr)
+                if buf is not None:
+                    bufs[attr] = {f: getattr(buf, f).cpu() for f in (
+                        'levels', 'scores', 'unseen', 'filled', 'staleness',
+                        'grounded_values', 'slot_ids', 'next_id',
+                        'sample_count')}
+            out.append((stats, bufs, weights(models)))
+        (cpu_stats, cpu_bufs, cpu_after), (card_stats, card_bufs,
+                                           card_after) = out
+        r = compare_weight_changes(before, cpu_after, card_after)
+        r['buffer_max_abs_err'] = max([check_diff(
+            f'card {name} {attr} {f} against the CPU', a, cpu_bufs[attr][f],
+            1e-5 if a.is_floating_point() else 0.0)
+            for attr, fields in card_bufs.items()
+            for f, a in fields.items()] or [0.0])
+        r['filled'] = {attr: int(b['filled'].sum())
+                       for attr, b in card_bufs.items()}
+        r['mean_env_return'] = [[s['mean_env_return'] for s in cpu_stats],
+                                [s['mean_env_return'] for s in card_stats]]
+        if name == 'repaired' and [s['level_replay']
+                                   for s in card_stats] != [0, 1, 0]:
+            raise AssertionError('repaired_vs_cpu: not generate, replay, '
+                                 'generate')
+        res[name] = r
+    return res
 
 
 def time_plr_kernels(device) -> dict:
@@ -2678,6 +3185,14 @@ def main() -> int:
     proj = [check_teacher_proj(b, device) for b in (MAIN_N, 27 * MAIN_N)]
     log('teacher_proj_vs_plain', t0, checks=proj)
     t0 = time.perf_counter()
+    pol = [check_policy_step(b, device) for b in (MAIN_N, BENCH_SIZE_N)]
+    log('policy_step_vs_plain', t0, checks=pol)
+    t0 = time.perf_counter()
+    proj_bwd = [check_teacher_proj_backward(b, n, device)
+                for b, n in ((27 * MAIN_N, 1024), (27 * MAIN_N, 64),
+                             (52 * MAIN_N, 1024), (52 * BENCH_SIZE_N, 1024))]
+    log('teacher_proj_backward_vs_plain', t0, checks=proj_bwd)
+    t0 = time.perf_counter()
     log('cycle_vs_cpu', t0, **check_cycle_against_cpu(device))
     t0 = time.perf_counter()
     log('paired_cycle_vs_cpu', t0, **check_paired_cycle_against_cpu(device))
@@ -2691,6 +3206,8 @@ def main() -> int:
     log('edit_vs_plain', t0, **edit_checks)
     t0 = time.perf_counter()
     log('accel_vs_cpu', t0, **check_accel_against_cpu(device))
+    t0 = time.perf_counter()
+    log('repaired_vs_cpu', t0, **check_repaired_against_cpu(device))
     t0 = time.perf_counter()
     walker_checks = {
         'walker_terrain': check_walker_terrain(device),
@@ -2764,6 +3281,7 @@ def main() -> int:
         normalize_advantages, ppo_loss,
     )
     from dcd_isaac_tpu_torch.kernels.teacher_proj import teacher_proj
+    from dcd_isaac_tpu_torch.kernels.policy_step import policy_step
     from dcd_isaac_tpu_torch.algos import rollout as rollout_mod
     from dcd_isaac_tpu_torch.kernels import walker_step, walker_terrain
     from dcd_isaac_tpu_torch.kernels.ppo_loss import ppo_loss_gaussian
@@ -2786,7 +3304,8 @@ def main() -> int:
                 'walker_terrain': walker_terrain.generate,
                 'ppo_loss_gaussian': ppo_loss_gaussian,
                 'carracing_track': ct.build, 'carracing_render': cr.render,
-                'carracing_step': cs.step, 'ppo_loss_beta': ppo_loss_beta}
+                'carracing_step': cs.step, 'ppo_loss_beta': ppo_loss_beta,
+                'policy_step': policy_step}
 
     def reset_counts():
         for w in wrappers.values():
@@ -2824,9 +3343,12 @@ def main() -> int:
     bench_cycle = check_paired_cycle_at_bench_size(device)
     torch.cuda.synchronize()
     bench_launches = read_counts()
+    # B2: T steps and the bootstrap value a student (no time-limit
+    # values at bench.py's settings); B4's backward: two kernels an epoch
     check_counts('paired_cycle_bench_size', bench_launches, {
         'multigrid_adversary_step': 52, 'teacher_proj': 52 + 1 + 5,
         'multigrid_step': 2 * MAIN_T, 'multigrid_obs': 2, 'gae': 3,
+        'policy_step': 2 * (MAIN_T + 1), 'teacher_proj_backward': 2 * 5,
         **update_launches((MAIN_T, MAIN_T, 52))})
     log('paired_cycle_bench_size', t0, launches=bench_launches,
         **bench_cycle)
@@ -2837,6 +3359,8 @@ def main() -> int:
     times.update(time_plr_kernels(device))
     times.update(time_walker_kernels(device))
     times.update(time_carracing_kernels(device))
+    times.update(time_policy_kernels(device))
+    times.update(time_teacher_backward(device))
     log('kernel_times', t0, **times)
 
     # -- 4. the slices ------------------------------------------------------
@@ -2868,8 +3392,8 @@ def main() -> int:
         return launches
 
     def run_plr_slice(phase, argv, need):
-        """A PLR⊥ or ACCEL runner of the training entry point at full
-        width, its buffer filled to rho through promote_staged; then a
+        """A PLR⊥, ACCEL or REPAIRED runner of the training entry point at
+        full width, its buffers filled to rho through promote_staged; then a
         generate cycle and a replay cycle (with ACCEL its edit cycle), with
         every kernel's launches counted around them; then one more cycle
         chosen by the runner's own coin."""
@@ -2894,9 +3418,14 @@ def main() -> int:
         short = {k: (launches[k], v) for k, v in need.items()
                  if launches[k] < v}
         kinds = [s_['level_replay'] for s_ in history[:2]]
-        if bad or short or kinds != [0, 1]:
+        # REPAIRED's teacher updates on every cycle, the replay's on the
+        # generate cycle's stored rollout
+        no_teacher = runner.is_training_env and not all(
+            'adversary_env_pg_loss' in s_ for s_ in history)
+        if bad or short or kinds != [0, 1] or no_teacher:
             raise AssertionError(f'{phase}: non-finite {bad}, launches '
-                                 f'short={short}, cycles {kinds}')
+                                 f'short={short}, cycles {kinds}, teacher '
+                                 f'update missing: {no_teacher}')
         log(phase, t0, prefill_seconds=fill_s, proportion_filled=filled,
             cycles=['generate', 'replay + edit' if runner.use_editor
                     else 'replay', 'coin'],
@@ -2905,25 +3434,58 @@ def main() -> int:
         return launches
 
     design = lambda moves: {'multigrid_adversary_step': moves}
+    # B2 in a student rollout with time-limit values: T actions, T values
+    # and the bootstrap value
+    b2 = lambda rollouts: {'policy_step': rollouts * (2 * MAIN_T + 1)}
     plr_need = {'plr_score_fold': 2, 'plr_sample_weights': 4,
                 'plr_promote': 2, 'multigrid_shortest_path': 1,
-                'multigrid_step': 2 * MAIN_T, 'gae': 2,
+                'multigrid_step': 2 * MAIN_T, 'gae': 2, **b2(2),
                 **update_launches((MAIN_T, MAIN_T))}
+    # The teacher without a core: its construction (27 moves of B5, 28
+    # B4 forwards at N = 64 with the bootstrap value), and its flat update
+    # (5 epochs of one minibatch: a B4 forward, its backward's two kernels
+    # and B7's launches an epoch).
+    construction = {'multigrid_adversary_step': 27, 'teacher_proj': 28}
+    flat_teacher_update = {'teacher_proj': 5,
+                           'teacher_proj_backward': 2 * 5, 'ppo_loss': 15,
+                           'ppo_loss_backward': 5, 'normalize_advantages': 2}
+
+    def plus(*needs):
+        out = {}
+        for need in needs:
+            for k, v in need.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
     by_path = {
         'dr': run_slice('slice', SLICE_ARGS, 2, {
             'multigrid_step': MAIN_T, 'multigrid_obs': 1, 'gae': 1,
             'multigrid_shortest_path': 1, 'multigrid_reset_random': 1,
-            **update_launches((MAIN_T,))}),
+            **b2(1), **update_launches((MAIN_T,))}),
         'robust_plr': run_plr_slice('robust_plr_slice', ROBUST_PLR_ARGS, {
             **plr_need, **design(27)}),
         'accel': run_plr_slice('accel_slice', ACCEL_ARGS, {
             **plr_need, **design(2), 'plr_score_fold': 3, 'plr_promote': 4,
             'multigrid_mutate': 1, 'multigrid_step': 3 * MAIN_T, 'gae': 3,
-            **update_launches((MAIN_T, MAIN_T, MAIN_T))}),
+            **b2(3), **update_launches((MAIN_T, MAIN_T, MAIN_T))}),
         'paired': run_slice('paired_slice', PAIRED_ARGS, 2, {
             'multigrid_adversary_step': 27, 'teacher_proj': 27 + 1 + 5,
             'multigrid_step': 2 * MAIN_T, 'multigrid_obs': 2, 'gae': 3,
+            **b2(2), 'teacher_proj_backward': 2 * 5,
             **update_launches((MAIN_T, MAIN_T, 27))}),
+        # REPAIRED's generate and replay cycles (the coin's third not
+        # counted): four student rollouts and updates, one construction,
+        # two teacher updates (the replay's on the stored rollout), both
+        # buffers' promotions on the generate cycle
+        'repaired': run_plr_slice('repaired_slice', REPAIRED_ARGS, plus(
+            b2(4), construction, flat_teacher_update, flat_teacher_update,
+            update_launches((MAIN_T,) * 4),
+            {'multigrid_step': 4 * MAIN_T, 'gae': 6, 'plr_score_fold': 4,
+             'plr_sample_weights': 4, 'plr_promote': 4})),
+        'minimax': run_slice('minimax_slice', MINIMAX_ARGS, 2, plus(
+            b2(1), construction, flat_teacher_update,
+            update_launches((MAIN_T,)),
+            {'multigrid_step': MAIN_T, 'gae': 2, 'multigrid_obs': 1})),
     }
     def run_cycle(runner, phase, phases, need, **kw):
         """One cycle of a runner that runs ``phases`` student phases (2 for
@@ -3087,7 +3649,9 @@ def main() -> int:
             'carracing_step': max(c['max_abs_err']
                                   for c in cr_checks['carracing_step']),
             'ppo_loss_beta': max(c['max_abs_err']
-                                 for c in cr_checks['ppo_loss_beta'])}
+                                 for c in cr_checks['ppo_loss_beta']),
+            'policy_step': max(c['max_abs_err'] for c in pol),
+            'teacher_proj_backward': max(c['max_abs_err'] for c in proj_bwd)}
     errs['gae'] = max(errs['gae'], *(c['max_abs_err']
                                      for c in cr_checks['gae']))
     errs['plr_score_fold'] = max(errs['plr_score_fold'],
@@ -3112,7 +3676,12 @@ def main() -> int:
             for c in walker_checks['ppo_loss_gaussian']]},
         'ppo_loss_beta': {'grad_errors': [
             {'R': c['R'], **c['grads']}
-            for c in cr_checks['ppo_loss_beta']]}}
+            for c in cr_checks['ppo_loss_beta']]},
+        'policy_step': {'rows_within_1e-5_of_a_cdf_entry': sum(
+            c['rows_within_1e-5_of_a_cdf_entry'] for c in pol)},
+        'teacher_proj_backward': {'grad_errors': [
+            {k: v for k, v in c.items() if k != 'max_abs_err'}
+            for c in proj_bwd]}}
     b = times.pop(f'ppo_loss_beta_r{CR_N * CR_T}')
     times['ppo_loss_beta'] = times.pop(f'ppo_loss_beta_r{CR_N * CR_T // 4}')
     times['ppo_loss_beta'].update(
@@ -3175,6 +3744,11 @@ def main() -> int:
                            'dcd_isaac_tpu/envs/carracing/env.py:186'),
         'ppo_loss_beta': ('dcd_isaac_tpu_torch/csrc/ppo_loss.cu',
                           'dcd_isaac_tpu/algos/ppo.py:82'),
+        'policy_step': ('dcd_isaac_tpu_torch/csrc/multigrid_policy.cu',
+                        'dcd_isaac_tpu/models/multigrid_models.py:98'),
+        'teacher_proj_backward': (
+            'dcd_isaac_tpu_torch/csrc/teacher_proj.cu',
+            'dcd_isaac_tpu/models/multigrid_models.py:120'),
     }
     # `launches` counts kernel launches, forward and backward (see
     # update_launches); B7's entry also carries the advantage

@@ -13,12 +13,19 @@ to the env's bounds and gives the raw sample's log-prob).  The
 only host syncs are the "any slot finished" checks of a stochastic reset,
 one a step on the card, counted in ``make_student_rollout.host_syncs``.
 
+The MultiGrid student's three policy calls a step (the action, the
+``handle_timelimits`` value of the pre-reset obs, and after the loop the
+bootstrap value) are kernel B2 (``model.step``), its weights packed once
+a rollout; a draw takes one uniform a row from the rollout's generator.
+
 Auto-reset is pluggable through ``reset_fn(t, env_state, level_seeds) ->
 (env_state, obs, level_seeds)``, called for the whole batch and selected
 per slot where an episode really ended; the default replays the same level
-against the rollout's initial state.  ``sample_action_fn(logits, t)`` lets
-a caller (the parity tests) choose the actions; the default samples from
-the policy with the rollout's generator.
+against the rollout's initial state.  ``sample_action_fn(out, t)`` lets a
+caller (the parity tests) choose the actions; the default samples from
+the policy with the rollout's generator.  For a B2 student the actions
+are chosen before its step, so ``out`` is None, and the kernel gives the
+chosen action's log-prob.
 
 The teacher's construction rollout (``make_adversary_rollout``) is the same
 loop over ``adversary_max_steps`` moves of kernel B5, with zero rewards
@@ -107,10 +114,12 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
     """Build ``rollout(carry, generator) → (final, Rollout, next_value,
     stats)``.  ``sample_action_fn(out, t)`` gets the policy's output
     (logits, the Gaussian's ``{'mean', 'log_std'}`` or the Beta's
-    ``{'alpha', 'beta'}``) and returns the action (a Beta's scaled)."""
+    ``{'alpha', 'beta'}``; None for a B2 student) and returns the action
+    (a Beta's scaled)."""
     T = cfg.num_steps
     normal = model.dist_type == 'normal'
     beta = model.dist_type == 'beta'
+    fused = model.fused_policy_step
 
     def rollout(carry: StepCarry, generator: torch.Generator = None):
         if sample_action_fn is not None:
@@ -126,21 +135,34 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
             carry.env_state, carry.obs, carry.level_seeds)
         steps = []
         with torch.no_grad():
+            weights = model.policy_weights() if fused else None
             for t in range(T):
-                logits, value, rnn_carry = model(
-                    carry.obs, carry.rnn_carry, carry.mask)
-                if beta and sample_action_fn is None:
-                    action, log_prob = model.sample_action(logits, generator)
-                elif beta:
-                    action = sample(logits, t)
-                    log_prob = model.log_prob(logits, action)
-                elif normal:
-                    action = sample(logits, t)
-                    log_prob = normal_log_prob(logits['mean'],
-                                               logits['log_std'], action)
+                if fused:
+                    if sample_action_fn is None:
+                        u = torch.rand((n,), generator=generator, device=dev)
+                        out = model.step(carry.obs, carry.rnn_carry,
+                                         carry.mask, weights, 'sample', u=u)
+                    else:
+                        out = model.step(carry.obs, carry.rnn_carry,
+                                         carry.mask, weights, 'action',
+                                         action=sample_action_fn(None, t))
+                    action, log_prob, logits, value, rnn_carry = out
                 else:
-                    action = sample(logits, t)
-                    log_prob = categorical_log_prob(logits, action)
+                    logits, value, rnn_carry = model(
+                        carry.obs, carry.rnn_carry, carry.mask)
+                    if beta and sample_action_fn is None:
+                        action, log_prob = model.sample_action(logits,
+                                                               generator)
+                    elif beta:
+                        action = sample(logits, t)
+                        log_prob = model.log_prob(logits, action)
+                    elif normal:
+                        action = sample(logits, t)
+                        log_prob = normal_log_prob(logits['mean'],
+                                                   logits['log_std'], action)
+                    else:
+                        action = sample(logits, t)
+                        log_prob = categorical_log_prob(logits, action)
 
                 env_state, next_obs, reward, done, info = env.step(
                     carry.env_state, action)
@@ -157,7 +179,11 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
 
                 # V(s_trunc): the pre-reset next obs with the post-step
                 # hidden state (rollout.py:138-144)
-                if cfg.handle_timelimits:
+                if cfg.handle_timelimits and fused:
+                    trunc_value = model.step(
+                        next_obs, rnn_carry, torch.ones_like(carry.mask),
+                        weights, 'value').value
+                elif cfg.handle_timelimits:
                     _, trunc_value, _ = model(
                         next_obs, rnn_carry, torch.ones_like(carry.mask))
                 else:
@@ -213,7 +239,12 @@ def make_student_rollout(env, model, cfg: RolloutConfig,
                     ret_rms=ret_rms)
 
             # Bootstrap value of the final obs (reference next_value).
-            _, next_value, _ = model(carry.obs, carry.rnn_carry, carry.mask)
+            if fused:
+                next_value = model.step(carry.obs, carry.rnn_carry,
+                                        carry.mask, weights, 'value').value
+            else:
+                _, next_value, _ = model(carry.obs, carry.rnn_carry,
+                                         carry.mask)
 
         has_epi = carry.epi_count > 0
         zero = torch.zeros((n,), device=dev)
@@ -262,10 +293,11 @@ def make_adversary_rollout(env, model, adv_steps: int,
 
     Rewards are zero (the runner replaces the last by the teacher's
     return), masks follow ``done``, ``bad_masks`` are 1 and
-    ``trunc_values`` 0.  ``sample_action_fn(logits, t)`` chooses the moves
-    and ``draws_fn(t)`` gives ``step_adversary``'s draws (the parity tests
-    inject both); by default the moves are sampled from the policy and the
-    draws taken, with ``generator``.
+    ``trunc_values`` 0; a teacher without a core carries ``()``.
+    ``sample_action_fn(logits, t)`` chooses the moves and ``draws_fn(t)``
+    gives ``step_adversary``'s draws (the parity tests inject both); by
+    default the moves are sampled from the policy and the draws taken,
+    with ``generator``.
     """
     T = adv_steps
 

@@ -8,11 +8,14 @@ The JAX package's XLA/TPU-only knobs are not copied; the port refuses
 logging settings it would otherwise ignore: ``--log_action_complexity
 true``, ``--checkpoint true`` and ``--archive_interval`` > 0.  The PLR
 and editor flags run (``--log_plr_buffer_stats`` is accepted: the PLR
-stats are in every cycle's stats, as in the JAX package); the runner
-refuses the methods that wait for later slices (PLR with a teacher, a
-fixed PLR seed set, PopArt), the registry the walker's and CarRacing's
-evaluation levels (and ACCEL's edits on CarRacing), and the model factory
-the walker's and CarRacing's teachers and the GRU core.
+stats are in every cycle's stats, as in the JAX package), with DR and,
+as REPAIRED, with PAIRED (``--protagonist_plr`` / ``--antagonist_plr``
+share the protagonist's buffer); ``--recurrent_adversary_env false``
+builds the teacher without a core.  The runner refuses the methods that
+wait for later slices (ALP-GMM, a fixed PLR seed set, PopArt), the
+registry the walker's and CarRacing's evaluation levels (and ACCEL's
+edits on CarRacing), and the model factory the walker's and CarRacing's
+teachers, a student without a core, the global critic and the GRU core.
 ``--no_cuda true`` asks for the CPU; otherwise the entry points run on the
 card.
 """

@@ -7,7 +7,10 @@ student's or the teacher's (as numpy arrays, with or without the top-level
 has the same names at other widths: the conv-128 kernel, a scalar embed of
 ``adversary_max_steps + 1`` → 10 and a 21 692-row input kernel whose rows
 are the conv features in (h, w, c) order, then the scalar embed, then
-``random_z``, the order of the port's embed and of kernel B4.
+``random_z``, the order of the port's embed and of kernel B4.  A tree
+without ``core`` (the non-recurrent teacher, ``--recurrent_adversary_env
+false``) has no LSTM weights, and its trunks' first kernels take the
+embed's rows in that order.
 
 ``from_flax_walker`` does the same for the walker student
 (``WalkerStudentPolicy``): its four trunk layers, value head, Gaussian
@@ -53,7 +56,7 @@ def from_flax(params_np: dict) -> dict:
     * Dense (in, out) → Linear (out, in).
     * ``OptimizedLSTMCell``: ``ii/if/ig/io`` (no bias) stacked into
       ``core.w_i``, ``hi/hf/hg/ho`` (with bias) into ``core.w_h``, gate
-      order i, f, g, o.
+      order i, f, g, o; no ``core`` in the tree, no core weights.
     """
     p = params_np.get('params', params_np)
     sd = {}
@@ -62,15 +65,8 @@ def from_flax(params_np: dict) -> dict:
     sd['image_conv.weight'] = kernel.permute(3, 2, 0, 1).contiguous()
     sd['image_conv.bias'] = _t(conv['bias'])
     _dense(sd, 'scalar_embed', p['scalar_embed'])
-    cell = p['core']['cell']
-    sd['core.w_i.weight'] = torch.cat(
-        [_t(cell[k]['kernel']) for k in ('ii', 'if', 'ig', 'io')], 1
-    ).T.contiguous()
-    sd['core.w_h.weight'] = torch.cat(
-        [_t(cell[k]['kernel']) for k in ('hi', 'hf', 'hg', 'ho')], 1
-    ).T.contiguous()
-    sd['core.w_h.bias'] = torch.cat(
-        [_t(cell[k]['bias']) for k in ('hi', 'hf', 'hg', 'ho')])
+    if 'core' in p:
+        _lstm(sd, p['core']['cell'])
     for side in ('actor', 'critic'):
         i = 0
         while f'{side}_fc{i}' in p:
@@ -79,6 +75,17 @@ def from_flax(params_np: dict) -> dict:
             i += 1
         _dense(sd, f'{side}_head', p[f'{side}_head'])
     return sd
+
+
+def _lstm(sd: dict, cell: dict) -> None:
+    sd['core.w_i.weight'] = torch.cat(
+        [_t(cell[k]['kernel']) for k in ('ii', 'if', 'ig', 'io')], 1
+    ).T.contiguous()
+    sd['core.w_h.weight'] = torch.cat(
+        [_t(cell[k]['kernel']) for k in ('hi', 'hf', 'hg', 'ho')], 1
+    ).T.contiguous()
+    sd['core.w_h.bias'] = torch.cat(
+        [_t(cell[k]['bias']) for k in ('hi', 'hf', 'hg', 'ho')])
 
 
 def from_flax_walker(params_np: dict) -> dict:

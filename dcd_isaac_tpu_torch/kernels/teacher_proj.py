@@ -11,13 +11,19 @@ point of JAX's chunked hoist), split over K so that a construction step's
 B = 32 fills the card.  It is bound by W_i's bytes at B = 32 and by
 operations at the update's B = 27 * 32.
 
-The backward is plain PyTorch (:class:`TeacherProj`): it recomputes the
-embed in row chunks of about 0.5 GB, as JAX's checkpointed chunks do, and
-takes two ``torch.matmul`` and the conv's autograd per chunk, so the
-teacher update's memory stays bounded at ``bench.py``'s B = 52 * 8192; a
-hand-written backward is queued (ROADMAP queue B).  :func:`teacher_proj`
-takes the plain twin (:func:`teacher_proj_plain`, autograd throughout)
-for CPU tensors, and launches the kernel or raises for CUDA tensors.
+The backward is two more kernels of the same file (:func:`_launch_backward`):
+dW = g^T A with A's conv tiles recomputed from the image, and dA = g W_i,
+whose conv columns times ReLU' reduce straight into the conv weight and
+bias gradients and whose last E columns are ``g_e``, with fixed-order sums
+of their split partials.  Neither writes the (B, K) embed, so the teacher
+update's memory stays bounded at ``bench.py``'s B = 52 * 8192.  Its plain
+twin, :func:`teacher_proj_backward_plain`, recomputes the embed in row
+chunks of about 0.5 GB, as JAX's checkpointed chunks do, with two
+``torch.matmul`` and the conv's autograd per chunk.  :func:`teacher_proj`
+takes the plain twins for CPU tensors (:func:`teacher_proj_plain`,
+autograd throughout), and launches the kernels or raises for CUDA
+tensors.  The kernels take N = 1024 (the recurrent teacher's LSTM input)
+and N = 64 (the non-recurrent teacher's stacked first trunk layers).
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ from . import _build
 
 # The kernel's shape rules (csrc/teacher_proj.cu, which checks them again
 # in dcd_teacher_proj_workspace): the conv filters a multiple of its K-tile
-# kBK up to kMaxC, and K a multiple of 4 for its 16-byte copies of W_i.
+# kBK up to kMaxC, and K a multiple of 4 for its 16-byte copies of W_i.  The
+# backward's K-tile is one pixel's 128 channels (C = 128, the teacher's),
+# and it takes N a multiple of 8.
 BK = 32
 MAX_FILTERS = 128
 # Rows of the embed the backward rebuilds at once: about 0.5 GB of fp32
@@ -51,6 +59,7 @@ def teacher_proj_plain(img, conv_w, conv_b, e, w_i) -> torch.Tensor:
 
 
 def _launch(img, conv_w, conv_b, e, w_i) -> torch.Tensor:
+    """The forward kernel (counted in ``teacher_proj.launches``)."""
     B, X, Y, _ = img.shape
     C = conv_w.shape[0]
     N, K = w_i.shape
@@ -67,53 +76,93 @@ def _launch(img, conv_w, conv_b, e, w_i) -> torch.Tensor:
         w_i.data_ptr(), out.data_ptr(), ws.data_ptr(), B, X, Y, C, E, N,
         torch.cuda.current_stream(img.device).cuda_stream)
     _build.check(rc, 'teacher_proj')
+    teacher_proj.launches += 1
     return out
 
 
-class TeacherProj(torch.autograd.Function):
-    """The projection with a plain PyTorch backward.
+def teacher_proj_backward_plain(img, conv_w, conv_b, e, w_i, grad):
+    """The gradients (conv_w, conv_b, e, w_i) of the projection given
+    ``grad`` (B, N), the embed rebuilt ``rows`` at a time."""
+    rows = max(1, int(CHUNK_BYTES // (4 * w_i.shape[1])))
+    g_w = torch.zeros_like(w_i)
+    g_conv_w, g_conv_b = torch.zeros_like(conv_w), torch.zeros_like(conv_b)
+    g_e = torch.empty_like(e)
+    for r in range(0, img.shape[0], rows):
+        g = grad[r:r + rows]
+        with torch.enable_grad():
+            leaves = [conv_w.detach().requires_grad_(),
+                      conv_b.detach().requires_grad_(),
+                      e[r:r + rows].detach().requires_grad_()]
+            a = embed_plain(img[r:r + rows], *leaves)
+        g_w.addmm_(g.T, a.detach())
+        gw, gb, g_e[r:r + rows] = torch.autograd.grad(a, leaves, g @ w_i)
+        g_conv_w += gw
+        g_conv_b += gb
+    return g_conv_w, g_conv_b, g_e, g_w
 
-    ``forward(fwd, img, conv_w, conv_b, e, w_i)`` computes the output with
-    ``fwd`` (the kernel launch on the card); the backward recomputes the
-    embed ``rows`` at a time and returns the gradients of conv_w, conv_b,
-    e and w_i.
+
+def _launch_backward(img, conv_w, conv_b, e, w_i, grad, parts: int = 3):
+    """The backward kernels: ``parts`` 1 dW, 2 dA (the conv gradients and
+    g_e), 3 both (the autograd path; counted in
+    ``teacher_proj.backward_launches``)."""
+    B, X, Y, _ = img.shape
+    C = conv_w.shape[0]
+    N, K = w_i.shape
+    E = e.shape[1]
+    lib = _build.library()
+    ws_floats = lib.dcd_teacher_proj_backward_workspace(B, N, K, C, E)
+    if ws_floats < 0:
+        raise ValueError(f'teacher_proj backward: no kernel plan for C={C}, '
+                         f'K={K}, N={N}')
+    dev = img.device
+    g_w = torch.empty_like(w_i)
+    g_conv_w, g_conv_b = torch.empty_like(conv_w), torch.empty_like(conv_b)
+    g_e = torch.empty_like(e)
+    ws = torch.empty(max(ws_floats, 4), dtype=torch.float32, device=dev)
+    rc = lib.dcd_teacher_proj_backward(
+        img.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(), e.data_ptr(),
+        w_i.data_ptr(), grad.data_ptr(), g_w.data_ptr(), g_conv_w.data_ptr(),
+        g_conv_b.data_ptr(), g_e.data_ptr(), ws.data_ptr(), B, X, Y, C, E, N,
+        parts, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, 'teacher_proj backward')
+    teacher_proj.backward_launches += (parts & 1) + (parts >> 1)
+    return g_conv_w, g_conv_b, g_e, g_w
+
+
+class TeacherProj(torch.autograd.Function):
+    """The projection and its gradients, by the kernels on the card and by
+    the plain twins on the CPU.
+
+    ``apply(img, conv_w, conv_b, e, w_i)``; the backward returns the
+    gradients of conv_w, conv_b, e and w_i.
     """
 
     @staticmethod
-    def forward(ctx, fwd, img, conv_w, conv_b, e, w_i):
+    def forward(ctx, img, conv_w, conv_b, e, w_i):
         ctx.save_for_backward(img, conv_w, conv_b, e, w_i)
-        return fwd(img, conv_w, conv_b, e, w_i)
+        if img.device.type == 'cpu':
+            return teacher_proj_plain(img, conv_w, conv_b, e, w_i)
+        return _launch(img, conv_w, conv_b, e, w_i)
 
     @staticmethod
     def backward(ctx, grad):
-        img, conv_w, conv_b, e, w_i = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        rows = max(1, int(CHUNK_BYTES // (4 * w_i.shape[1])))
-        g_w = torch.zeros_like(w_i) if need[5] else None
-        g_conv_w, g_conv_b = torch.zeros_like(conv_w), torch.zeros_like(conv_b)
-        g_e = torch.empty_like(e)
-        for r in range(0, img.shape[0], rows):
-            g = grad[r:r + rows]
-            with torch.enable_grad():
-                leaves = [conv_w.detach().requires_grad_(),
-                          conv_b.detach().requires_grad_(),
-                          e[r:r + rows].detach().requires_grad_()]
-                a = embed_plain(img[r:r + rows], *leaves)
-            if g_w is not None:
-                g_w.addmm_(g.T, a.detach())
-            gw, gb, g_e[r:r + rows] = torch.autograd.grad(a, leaves, g @ w_i)
-            g_conv_w += gw
-            g_conv_b += gb
-        return (None, None, g_conv_w if need[2] else None,
-                g_conv_b if need[3] else None, g_e if need[4] else None, g_w)
+        saved = ctx.saved_tensors
+        grad = grad.contiguous()
+        if grad.device.type == 'cpu':
+            grads = teacher_proj_backward_plain(*saved, grad)
+        else:
+            grads = _launch_backward(*saved, grad)
+        return (None, *(g if need else None for g, need in zip(
+            grads, ctx.needs_input_grad[1:])))
 
 
 def teacher_proj(img, conv_w, conv_b, e, w_i) -> torch.Tensor:
     """zx (B, N) of images (B, X, Y, 3) uint8; see :func:`teacher_proj_plain`.
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel
-    (counted in ``teacher_proj.launches``) with the plain backward, or
-    raise.
+    CPU tensors take the plain twin (autograd throughout); CUDA tensors
+    launch the kernel, and in the backward its two gradient kernels, or
+    raise.  ``teacher_proj.launches`` counts the forward's launches,
+    ``teacher_proj.backward_launches`` the backward's two kernels.
     """
     if img.dim() != 4 or img.shape[-1] != 3:
         raise ValueError(f'img: expected (B, X, Y, 3), got {tuple(img.shape)}')
@@ -134,9 +183,11 @@ def teacher_proj(img, conv_w, conv_b, e, w_i) -> torch.Tensor:
                          f'{BK} up to {MAX_FILTERS}')
     if K % 4:
         raise ValueError(f'K = {K}: the kernel takes a multiple of 4')
-    out = TeacherProj.apply(_launch, img, conv_w, conv_b, e, w_i)
-    teacher_proj.launches += 1
-    return out
+    if w_i.shape[0] % 8:
+        raise ValueError(f'N = {w_i.shape[0]}: the backward takes a multiple '
+                         f'of 8')
+    return TeacherProj.apply(img, conv_w, conv_b, e, w_i)
 
 
 teacher_proj.launches = 0
+teacher_proj.backward_launches = 0

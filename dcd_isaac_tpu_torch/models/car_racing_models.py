@@ -43,6 +43,8 @@ class CarRacingNetwork(nn.Module):
     """Student CNN + Beta policy (car_racing_models.py:30-123)."""
 
     dist_type = 'beta'
+    # Kernel B2 steps MultiGrid's students only.
+    fused_policy_step = False
 
     def __init__(self, obs_shape=(96, 96, 12), action_dim: int = 3,
                  hidden_size: int = 100, crop: bool = False,

@@ -1,6 +1,8 @@
 """Shared model components (port of dcd_isaac_tpu/models/common.py:31-154).
 
-The LSTM is flax's ``OptimizedLSTMCell`` written out: carry ``(c, h)``, gate
+The core is an LSTM or, with arch ``'none'`` (or None), the identity with
+an empty carry ``()`` (the non-recurrent teacher).  The LSTM is flax's
+``OptimizedLSTMCell`` written out: carry ``(c, h)``, gate
 order i, f, g, o, input kernels without bias and hidden kernels with bias.
 The carry is multiplied by the mask (0 at episode starts) before every
 cell step, which reproduces the reference's zero-reset chunking.
@@ -13,22 +15,30 @@ gain sqrt(2) and zero bias.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..kernels.lstm_seq import lstm_seq
 
-Carry = Tuple[torch.Tensor, torch.Tensor]
+Carry = Union[Tuple[torch.Tensor, torch.Tensor], Tuple[()]]
+# The archs of the identity core (JAX common.py:71).
+NO_CORE = (None, 'none', '')
+
+
+def _check_arch(arch) -> None:
+    if arch != 'lstm' and arch not in NO_CORE:
+        raise NotImplementedError(
+            f'recurrent arch {arch!r}: only the LSTM and no core are ported')
 
 
 def rnn_initial_carry(arch: str, hidden_size: int, batch_dims,
                       device=None) -> Carry:
-    """Zero ``(c, h)`` carry of an LSTM core."""
-    if arch != 'lstm':
-        raise NotImplementedError(
-            f'recurrent arch {arch!r}: only the LSTM is ported')
+    """Zero ``(c, h)`` carry of an LSTM core, ``()`` without a core."""
+    _check_arch(arch)
+    if arch in NO_CORE:
+        return ()
     shape = (*batch_dims, hidden_size)
     return (torch.zeros(shape, device=device),
             torch.zeros(shape, device=device))
@@ -54,7 +64,8 @@ def mlp(sizes: Sequence[int], generator=None) -> nn.Sequential:
 
 
 class RNNCore(nn.Module):
-    """LSTM core with mask-reset semantics.
+    """LSTM core with mask-reset semantics, or the identity (no weights,
+    carry ``()``) when ``arch`` is ``'none'``.
 
     ``w_i`` is the concatenation of flax's ``ii, if, ig, io`` kernels (no
     bias), ``w_h`` of ``hi, hf, hg, ho`` with their biases.  The model
@@ -65,17 +76,21 @@ class RNNCore(nn.Module):
     def __init__(self, input_size: int, hidden_size: int = 256,
                  arch: str = 'lstm', generator=None):
         super().__init__()
-        if arch != 'lstm':
-            raise NotImplementedError(
-                f'recurrent arch {arch!r}: only the LSTM is ported')
+        _check_arch(arch)
         self.arch = arch
         self.hidden_size = H = hidden_size
+        if not self.is_recurrent:
+            return
         self.w_i = nn.Linear(input_size, 4 * H, bias=False)
         self.w_h = nn.Linear(H, 4 * H)
         for g in range(4):
             orthogonal_(self.w_i.weight[g * H:(g + 1) * H], 1.0, generator)
             orthogonal_(self.w_h.weight[g * H:(g + 1) * H], 1.0, generator)
         nn.init.zeros_(self.w_h.bias)
+
+    @property
+    def is_recurrent(self) -> bool:
+        return self.arch not in NO_CORE
 
     def initial_carry(self, batch_dims, device=None) -> Carry:
         return rnn_initial_carry(self.arch, self.hidden_size, batch_dims,

@@ -3,7 +3,10 @@ categorical of the MultiGrid models, the walker's diagonal Gaussian and
 CarRacing's Beta.
 
 Sampling takes an explicit ``torch.Generator``: its stream differs from
-``jax.random``'s, so tests inject actions instead of sharing seeds.
+``jax.random``'s, so tests inject actions instead of sharing seeds.  A
+categorical draw is the inverse CDF of softmax(logits) at one uniform a
+row, the rule kernel B2 (``kernels/policy_step.py``) applies in its
+epilogue to the same uniforms.
 """
 
 from __future__ import annotations
@@ -15,12 +18,19 @@ import torch
 import torch.nn.functional as F
 
 
+def categorical_inverse_cdf(logits: torch.Tensor, u: torch.Tensor
+                            ) -> torch.Tensor:
+    """The action whose CDF interval of softmax(logits) holds ``u`` in
+    [0, 1): the number of CDF entries (but the last) at or below ``u``."""
+    cdf = F.softmax(logits, dim=-1).cumsum(-1)
+    return (cdf[..., :-1] <= u[..., None]).sum(-1)
+
+
 def categorical_sample(logits: torch.Tensor, generator: torch.Generator
                        ) -> torch.Tensor:
-    probs = F.softmax(logits, dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    a = torch.multinomial(flat, 1, generator=generator)
-    return a.reshape(probs.shape[:-1])
+    u = torch.rand(logits.shape[:-1], generator=generator,
+                   device=logits.device)
+    return categorical_inverse_cdf(logits, u)
 
 
 def categorical_log_prob(logits: torch.Tensor, actions: torch.Tensor

@@ -46,6 +46,8 @@ class WalkerStudentPolicy(nn.Module):
     """MLPBase + DiagGaussian (walker_models.py:113-167)."""
 
     dist_type = 'normal'
+    # Kernel B2 steps MultiGrid's students only.
+    fused_policy_step = False
 
     def __init__(self, obs_dim: int = 24, action_dim: int = 4,
                  hidden_size: int = 64, generator=None):

@@ -28,6 +28,14 @@ host loop that picks them (:924-984).
     teacher's return (the regret, or minus the protagonist's best return)
     becomes the last reward of its rollout, and the teacher takes its own
     PPO update after both students.
+  * REPAIRED (``paired`` with ``--use_plr``, JAX runner :266-286,
+    :527-643, :674-752): the teacher's generate cycle stages both
+    students' levels (PLR⊥ discards both students' gradients) and keeps
+    the teacher's rollout; a replay cycle draws each student's levels from
+    its own buffer (the antagonist's, or with ``--protagonist_plr`` or
+    ``--antagonist_plr`` the protagonist's), scores them, and updates the
+    teacher on the last generate cycle's rollout with the replay's regret
+    (zeros before the first generate cycle, as the JAX runner pre-fills).
 Each student phase runs GAE and the PPO update (recurrent, or flat for
 the walker's MLP and CarRacing's CNN).  With ``--normalize_returns`` the
 student's rewards go through VecNormalize, whose running statistics
@@ -49,7 +57,7 @@ from ..algos.rollout import (
     RolloutConfig, initial_step_carry, make_adversary_rollout,
     make_student_rollout,
 )
-from ..algos.storage import batched_value_loss, compute_gae
+from ..algos.storage import Rollout, batched_value_loss, compute_gae
 from ..level_replay import plr as plr_lib
 
 # The slice of the port each other method waits for (ROADMAP.md queue A).
@@ -61,8 +69,9 @@ _TEACHER_ALGOS = ('paired', 'flexible_paired', 'minimax')
 _INJECTED = ('levels', 'sample_action_fn', 'antagonist_sample_fn',
              'teacher_sample_fn', 'edit_sample_fn', 'reset_fn',
              'reset_draws', 'teacher_draws_fn', 'design', 'replay',
-             'replay_seeds', 'replay_reset_seeds', 'edit_coin',
-             'mutation_draws', 'perms')
+             'replay_seeds', 'replay_reset_seeds',
+             'antagonist_replay_seeds', 'antagonist_replay_reset_seeds',
+             'edit_coin', 'mutation_draws', 'perms')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,10 +109,6 @@ class AdversarialRunner:
         for flag in ('use_popart', 'adv_use_popart'):
             if getattr(args, flag):
                 raise NotImplementedError(f'--{flag} is not ported yet')
-        if args.use_plr and algo != 'domain_randomization':
-            raise NotImplementedError(
-                f'--use_plr with --ued_algo {algo} (REPAIRED) is not ported '
-                'yet; it waits for the remaining-methods slice')
         if args.use_plr and not args.train_full_distribution:
             raise NotImplementedError(
                 '--train_full_distribution false (a fixed PLR seed set) is '
@@ -136,8 +141,9 @@ class AdversarialRunner:
             num_mini_batch=args.adv_num_mini_batch,
             entropy_coef=args.adv_entropy_coef,
             max_grad_norm=args.adv_max_grad_norm)
-        # PLR's buffer of levels (JAX runner :109-139, :266-286)
-        self.plr_cfg = self.plr_buffer = None
+        # PLR's buffer of levels (JAX runner :109-139, :266-286); with
+        # PAIRED the antagonist's own unless it shares the protagonist's
+        self.plr_cfg = self.plr_buffer = self.plr_antagonist = None
         if self.use_plr:
             self.plr_cfg = plr_lib.PLRConfig(
                 capacity=args.level_replay_seed_buffer_size,
@@ -160,6 +166,11 @@ class AdversarialRunner:
             self.plr_buffer = plr_lib.init_plr(
                 self.plr_cfg, env.level_shape, self.device,
                 level_dtype=env.level_dtype)
+            if self.is_paired and not (args.protagonist_plr
+                                       or args.antagonist_plr):
+                self.plr_antagonist = plr_lib.init_plr(
+                    self.plr_cfg, env.level_shape, self.device,
+                    level_dtype=env.level_dtype)
         self._student_ro_cfg = RolloutConfig(
             num_steps=args.num_steps, clip_reward=args.clip_reward,
             handle_timelimits=args.handle_timelimits,
@@ -191,6 +202,13 @@ class AdversarialRunner:
             self.generators[role] = gen
         self.env_return_rms = (RMS.create(self.device)
                                if args.adv_normalize_returns else None)
+        # The last generate cycle's teacher rollout and bootstrap value,
+        # which a REPAIRED replay cycle updates the teacher on; zeros until
+        # the first (JAX runner :293-301).
+        self.teacher_rollout = self.teacher_next_value = None
+        if self.is_training_env:
+            self.teacher_rollout, self.teacher_next_value = (
+                self._zero_teacher_rollout())
 
         # host-side bookkeeping (reference runner.reset())
         self.num_updates = 0
@@ -203,6 +221,23 @@ class AdversarialRunner:
         self.latest_env_stats = {}
 
     # ------------------------------------------------------------------
+    def _zero_teacher_rollout(self):
+        """An all-zero teacher rollout of the construction's shape, and a
+        zero bootstrap value."""
+        T, N = self.env.adversary_rollout_steps, self.args.num_processes
+        dev = self.device
+        z = lambda dtype=torch.float32: torch.zeros((T, N), dtype=dtype,
+                                                   device=dev)
+        dtypes = {'image': torch.uint8, 'time_step': torch.int32}
+        obs = {k: torch.zeros((T, N, *shape), dtype=dtypes.get(
+                   k, torch.float32), device=dev)
+               for k, shape in self.env.adversary_obs_shapes.items()}
+        rollout = Rollout(
+            obs=obs, actions=z(torch.int64), log_probs=z(), values=z(),
+            rewards=z(), masks_pre=z(), dones=z(torch.bool), bad_masks=z(),
+            trunc_values=z())
+        return rollout, torch.zeros((N,), device=dev)
+
     def _reset_random_fn(self):
         env, n = self.env, self.args.num_processes
 
@@ -266,12 +301,14 @@ class AdversarialRunner:
         return env_states
 
     def _replay_reset_fn(self, levels, weights,
-                         seeds_fn: Optional[Callable] = None):
+                         seeds_fn: Optional[Callable] = None,
+                         role: str = 'agent'):
         """Mid-rollout replay resets (:233-244): each finished slot takes a
-        level drawn by the weights frozen at the rollout's start;
-        ``seeds_fn(t)`` (N,) replaces the draws of step t."""
+        level drawn by the weights frozen at the rollout's start, with the
+        role's generator; ``seeds_fn(t)`` (N,) replaces the draws of step
+        t."""
         env, N = self.env, self.args.num_processes
-        gen = self.generators['agent']
+        gen = self.generators[role]
 
         def reset_fn(t, state, seeds):
             if seeds_fn is None:
@@ -284,11 +321,11 @@ class AdversarialRunner:
         return reset_fn
 
     def _student_phase(self, role, env_states, level_seeds, rollout_fn,
-                       perms=None, discard_grad: bool = False,
-                       update_sampler: bool = False):
+                       perms=None, discard_grad: bool = False, plr=None):
         """Rollout, GAE, PLR scoring and PPO update of one student
-        (:397-464).  With ``update_sampler`` the rollout folds into the PLR
-        buffer and its staged scores and counts come back in ``staged``."""
+        (:397-464).  With a PLR buffer ``plr`` the rollout folds into it:
+        the folded buffer comes back in ``info['plr']``, its staged scores
+        and counts in ``info['staged']``."""
         args = self.args
         model = self.models[role]
         gen = self.generators[role]
@@ -301,16 +338,15 @@ class AdversarialRunner:
             steps, next_value, args.gamma, args.gae_lambda,
             use_proper_time_limits=args.handle_timelimits)
         info = {'rollout': ro_stats}
-        if update_sampler:
+        if plr is not None:
             cfg = self.plr_cfg
             plr_returns = returns
             if cfg.strategy == 'alt_advantage_abs':
                 plr_returns = compute_gae(
                     steps, next_value, cfg.alt_gamma, args.gae_lambda,
                     use_proper_time_limits=args.handle_timelimits)
-            self.plr_buffer, st_scores, st_counts = (
-                plr_lib.update_with_rollout(self.plr_buffer, cfg, steps,
-                                            plr_returns, steps.values))
+            info['plr'], st_scores, st_counts = plr_lib.update_with_rollout(
+                plr, cfg, steps, plr_returns, steps.values)
             info['staged'] = (st_scores, st_counts)
         if self.use_plr:
             info['batched_value_loss'] = batched_value_loss(
@@ -351,12 +387,12 @@ class AdversarialRunner:
                                     args.adv_clip_reward)
         return env_ret
 
-    def _teacher_update(self, t_rollout, t_next_value, env_ret, perms=None):
-        """The regret as the last reward, GAE, the teacher's PPO
-        (:513-522)."""
+    def _teacher_update(self, env_ret, perms=None):
+        """The regret as the last reward of the stored teacher rollout,
+        GAE, the teacher's PPO (:513-522)."""
         args = self.args
-        t_rollout = t_rollout.replace_final_reward(env_ret)
-        returns = compute_gae(t_rollout, t_next_value, args.gamma,
+        t_rollout = self.teacher_rollout.replace_final_reward(env_ret)
+        returns = compute_gae(t_rollout, self.teacher_next_value, args.gamma,
                               args.gae_lambda)
         model = self.models['adversary_env']
         return self.updates['adversary_env'](
@@ -427,13 +463,13 @@ class AdversarialRunner:
             reset_fn = None     # same-level auto-reset (JAX _ro_same)
         else:
             reset_fn = inj.get('reset_fn') or self._reset_random_fn()
+        discard = self.use_plr and self.robust_plr
         a_info = self._student_phase(
             'agent', env_states, seeds, make_student_rollout(
                 self.env, self.models['agent'], self._student_ro_cfg,
                 reset_fn=reset_fn,
                 sample_action_fn=inj.get('sample_action_fn')),
-            perms.get('agent'), discard_grad=self.use_plr and self.robust_plr,
-            update_sampler=self.use_plr)
+            perms.get('agent'), discard, self.plr_buffer)
         b_info = None
         if self.is_paired:
             b_info = self._student_phase(
@@ -441,48 +477,86 @@ class AdversarialRunner:
                     self.env, self.models['adversary_agent'],
                     self._student_ro_cfg,
                     sample_action_fn=inj.get('antagonist_sample_fn')),
-                perms.get('adversary_agent'))
+                perms.get('adversary_agent'), discard, self.plr_antagonist)
         if self.use_plr:
+            levels = self.env.get_level(env_states)
+            solvable = self.env.solvable(env_states)
             self.plr_buffer = plr_lib.promote_staged(
-                self.plr_buffer, self.plr_cfg, self.env.get_level(env_states),
-                *a_info['staged'],
-                staged_solvable=self.env.solvable(env_states))
+                a_info['plr'], self.plr_cfg, levels, *a_info['staged'],
+                staged_solvable=solvable)
+            if self.plr_antagonist is not None:
+                self.plr_antagonist = plr_lib.promote_staged(
+                    b_info['plr'], self.plr_cfg, levels, *b_info['staged'],
+                    staged_solvable=solvable)
         env_ret = self._env_return(
             a_info['rollout'],
             b_info['rollout'] if b_info is not None else a_info['rollout'])
         t_stats = None
         if self.is_training_env:
-            t_stats = self._teacher_update(t_rollout, t_next_value, env_ret,
+            self.teacher_rollout, self.teacher_next_value = (
+                t_rollout, t_next_value)
+            t_stats = self._teacher_update(env_ret,
                                            perms.get('adversary_env'))
         return self._device_stats(env_states, a_info, b_info, t_stats,
                                   env_ret)
 
     def _cycle_replay(self, inj: dict):
         """N levels drawn from the buffer, and again for every finished
-        episode; the student's rollout scores them.  → ((stats, env
-        stats), seeds, the 'easy' metric mean return - batched value
-        loss)."""
-        N = self.args.num_processes
+        episode; the student's rollout scores them.  With PAIRED the
+        antagonist does the same on its own draws (from its buffer, or the
+        shared one), and the teacher updates on its stored rollout with
+        the two replays' regret (:701-738).  → ((stats, env stats), seeds,
+        the 'easy' metric mean return - batched value loss)."""
         perms = inj.get('perms') or {}
-        seeds, levels, self.plr_buffer = plr_lib.sample_replay_levels(
-            self.plr_buffer, self.plr_cfg, N, self.generators['agent'],
-            inj.get('replay_seeds'))
-        env_states, _ = self.env.reset_to_level(levels)
-        weights = plr_lib.sample_weights(self.plr_buffer, self.plr_cfg)
-        reset_fn = self._replay_reset_fn(self.plr_buffer.levels, weights,
-                                         inj.get('replay_reset_seeds'))
-        a_info = self._student_phase(
-            'agent', env_states, seeds, make_student_rollout(
-                self.env, self.models['agent'], self._student_ro_cfg,
-                reset_fn=reset_fn,
-                sample_action_fn=inj.get('sample_action_fn')),
-            perms.get('agent'), update_sampler=True)
-        env_ret = self._env_return(a_info['rollout'], a_info['rollout'])
+        seeds, env_states, a_info, self.plr_buffer = self._replay_phase(
+            'agent', self.plr_buffer, inj.get('replay_seeds'),
+            inj.get('replay_reset_seeds'), inj.get('sample_action_fn'),
+            perms.get('agent'))
+        b_info = None
+        if self.is_paired:
+            shared = self.plr_antagonist is None
+            _, _, b_info, buf = self._replay_phase(
+                'adversary_agent',
+                self.plr_buffer if shared else self.plr_antagonist,
+                inj.get('antagonist_replay_seeds'),
+                inj.get('antagonist_replay_reset_seeds'),
+                inj.get('antagonist_sample_fn'), perms.get('adversary_agent'))
+            if shared:
+                self.plr_buffer = buf
+            else:
+                self.plr_antagonist = buf
+        env_ret = self._env_return(
+            a_info['rollout'],
+            b_info['rollout'] if b_info is not None else a_info['rollout'])
+        t_stats = None
+        if self.is_training_env:
+            t_stats = self._teacher_update(env_ret,
+                                           perms.get('adversary_env'))
         stats, env_stats = self._device_stats(
             env_states if self.args.log_replay_complexity else None, a_info,
-            None, None, env_ret)
+            b_info, t_stats, env_ret)
         easy = a_info['rollout']['mean_return'] - a_info['batched_value_loss']
         return (stats, env_stats), seeds, easy
+
+    def _replay_phase(self, role, buf, seeds=None, reset_seeds=None,
+                      sample_action_fn=None, perms=None):
+        """One student's replay: N levels drawn from ``buf`` (``seeds``
+        replaces the draw), mid-rollout resets drawn by its weights
+        (``reset_seeds(t)``), scored into it; → (seeds, env states, info,
+        the buffer)."""
+        N = self.args.num_processes
+        seeds, levels, buf = plr_lib.sample_replay_levels(
+            buf, self.plr_cfg, N, self.generators[role], seeds)
+        env_states, _ = self.env.reset_to_level(levels)
+        weights = plr_lib.sample_weights(buf, self.plr_cfg)
+        reset_fn = self._replay_reset_fn(buf.levels, weights, reset_seeds,
+                                         role)
+        info = self._student_phase(
+            role, env_states, seeds, make_student_rollout(
+                self.env, self.models[role], self._student_ro_cfg,
+                reset_fn=reset_fn, sample_action_fn=sample_action_fn),
+            perms, plr=buf)
+        return seeds, env_states, info, info['plr']
 
     def _cycle_edit(self, parents, inj: dict):
         """ACCEL (:754-796): the parents' levels mutated, evaluated without
@@ -502,9 +576,9 @@ class AdversarialRunner:
                 self.env, self.models['agent'], self._student_ro_cfg,
                 sample_action_fn=inj.get('edit_sample_fn')),
             (inj.get('perms') or {}).get('agent_edit'), discard_grad=True,
-            update_sampler=True)
+            plr=buf)
         self.plr_buffer = plr_lib.promote_staged(
-            self.plr_buffer, self.plr_cfg, self.env.get_level(env_states),
+            a_info['plr'], self.plr_cfg, self.env.get_level(env_states),
             *a_info['staged'], staged_solvable=self.env.solvable(env_states),
             staged_num_edits=parent_edits + 1)
 

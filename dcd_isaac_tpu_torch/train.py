@@ -6,7 +6,8 @@ walker's three training names or CarRacing's two), the models of ``--ued_algo``
 (``make_all_models``) and the runner on the card (``--no_cuda true`` asks
 for the CPU) and runs cycles until ``--num_env_steps``, printing one JSON
 stats line per cycle.  With ``--use_plr true`` the runner keeps a PLR
-buffer and picks generate, replay (and with ``--use_editor true``, edit)
+buffer (with PAIRED, REPAIRED: one for each student unless they share
+it) and picks generate, replay (and with ``--use_editor true``, edit)
 cycles.  CSV logs, checkpoints and
 in-training evaluation come with the entry-points slice.
 """

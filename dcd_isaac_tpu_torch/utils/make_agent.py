@@ -1,7 +1,8 @@
 """Model factory (port of dcd_isaac_tpu/utils/make_agent.py:15-66).
 
 The MultiGrid roles: the student ``agent``, the PAIRED antagonist
-``adversary_agent`` (a second student) and the teacher ``adversary_env``;
+``adversary_agent`` (a second student) and the teacher ``adversary_env``
+(with an LSTM, or none with ``--recurrent_adversary_env false``);
 the walker's student (``models/walker_models.py``) and CarRacing's
 (``models/car_racing_models.py``).
 """
@@ -27,10 +28,7 @@ def make_model(args, env, agent_type: str = 'agent',
     if family != 'multigrid':
         raise NotImplementedError(f'{family} models are not ported yet')
     if agent_type == 'adversary_env':
-        if not args.recurrent_adversary_env:
-            raise NotImplementedError(
-                'a non-recurrent teacher (--recurrent_adversary_env false) '
-                'is not ported yet')
+        # --recurrent_adversary_env false: no core, the trunks on the embed
         p = env.params
         return MultigridNetwork(
             num_actions=env.adversary_num_actions,
@@ -39,7 +37,8 @@ def make_model(args, env, agent_type: str = 'agent',
             scalar_dim=p.adversary_max_steps + 1,
             view_size=p.width,
             random_z_dim=p.random_z_dim,
-            recurrent_arch=args.recurrent_arch,
+            recurrent_arch=(args.recurrent_arch
+                            if args.recurrent_adversary_env else 'none'),
             recurrent_hidden_size=args.recurrent_hidden_size,
             generator=generator)
     if agent_type not in ('agent', 'adversary_agent'):

@@ -14,7 +14,6 @@ public functions, with the levels, actions, coins, seeds, edits and
 permutations injected into both.
 """
 
-import json
 from types import SimpleNamespace
 
 import jax
@@ -445,37 +444,6 @@ def test_batched_value_loss_matches_jax():
             atol=1e-6, err_msg=str(kw))
 
 
-# -- the training entry point ---------------------------------------------
-
-@pytest.mark.parametrize('method', ['robust_plr', 'accel'])
-def test_train_runs_plr_cycles(method, capsys):
-    """A few PLR⊥ or ACCEL cycles through ``train.main`` on the CPU, from an
-    empty buffer of 32 slots, on the 6x6 env with 50-step episodes and
-    64-step rollouts, so every level completes an episode and is staged:
-    generate cycles fill the buffer past rho, then replay (and edit) cycles
-    run."""
-    flags = ROBUST_PLR_FLAGS if method == 'robust_plr' else ACCEL_FLAGS
-    cycles, steps = 14, 64
-    runner, history = train.main(flags + [
-        '--env_name', 'MultiGrid-MiniAdversarial-v0', '--num_steps',
-        str(steps), '--level_replay_seed_buffer_size', '32',
-        '--num_env_steps', str(cycles * N * steps)])
-    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
-    assert len(history) == len(lines) == cycles
-    for stats in history:
-        assert all(np.isfinite(v) for v in stats.values())
-        assert 0 <= stats['solvable_mass'] <= 1 + 1e-5
-    replays = sum(s['level_replay'] for s in history)
-    assert 0 < replays < cycles
-    assert history[-1]['proportion_filled'] >= 0.5
-    edits = history[-1]['total_num_edits']
-    assert edits == (replays if method == 'accel' else 0)
-    assert history[-1]['steps'] == (cycles + edits) * N * steps
-    assert history[-1]['total_student_grad_updates'] == replays
-    if method == 'accel':
-        assert history[-1]['weighted_num_edits'] > 0
-
-
 # -- the kernel wrappers: twins on the CPU, no fallback off it ------------
 
 def _no_build(monkeypatch):
@@ -520,8 +488,10 @@ def test_edit_wrappers_never_fall_back_off_the_cpu(monkeypatch):
 def test_plr_flags_are_let_through_and_teachers_with_plr_refused():
     args = parser.parse_args(ACCEL_FLAGS)
     assert train.check_args(args) is args
-    with pytest.raises(NotImplementedError, match='REPAIRED'):
-        train.main(ROBUST_PLR_FLAGS + ['--ued_algo', 'paired',
-                                       '--recurrent_adversary_env', 'true'])
+    # REPAIRED (PAIRED with PLR⊥) is built, with the antagonist's buffer
+    repaired = train.setup(train.check_args(parser.parse_args(
+        ROBUST_PLR_FLAGS + ['--ued_algo', 'paired',
+                            '--recurrent_adversary_env', 'true'])))
+    assert repaired.is_paired and repaired.plr_antagonist is not None
     with pytest.raises(NotImplementedError, match='fixed PLR seed set'):
         train.main(ROBUST_PLR_FLAGS + ['--train_full_distribution', 'false'])

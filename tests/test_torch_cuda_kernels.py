@@ -115,7 +115,11 @@ def test_shortest_path_bit_exact(device):
 @pytest.mark.parametrize('batch', [1, 32, 864])
 def test_teacher_proj_and_gradients(device, batch):
     """Within rtol = atol = 1e-4: each output sums 21 692 fp32 products in
-    another order than cuBLAS and cuDNN."""
+    another order than cuBLAS and cuDNN.  The conv gradients are held
+    against the twin with the kernels' ReLU' (chip_smoke.kernel_conv_grads:
+    a pre-activation within rounding of zero may take the other side in
+    cuDNN's order)."""
+    import chip_smoke
     from dcd_isaac_tpu_torch.kernels.teacher_proj import (
         teacher_proj, teacher_proj_plain,
     )
@@ -134,7 +138,8 @@ def test_teacher_proj_and_gradients(device, batch):
         results.append((out, torch.autograd.grad(out, leaves, g_out)))
     (out, grads), (want, want_grads) = results
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
-    for a, b in zip(grads, want_grads):
+    *ref_conv, _ = chip_smoke.kernel_conv_grads(img, *weights, g_out)
+    for a, b in zip(grads, (*ref_conv, *want_grads[2:])):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
@@ -411,3 +416,26 @@ def test_ppo_loss_beta_matches_plain_and_repeats(device, rows,
     runs."""
     import chip_smoke
     chip_smoke.check_ppo_loss_beta(rows, clip_value_loss, device)
+
+
+@pytest.mark.parametrize('batch', [1, 32, 2049, 8192])
+def test_policy_step_matches_plain(device, batch):
+    """Kernel B2 in its four modes against the twin, at
+    chip_smoke.check_policy_step's tolerance (1e-5 relative; the sampled
+    actions equal away from a CDF entry); one launch a mode."""
+    import chip_smoke
+    from dcd_isaac_tpu_torch.kernels.policy_step import policy_step
+    before = policy_step.launches
+    chip_smoke.check_policy_step(batch, device)
+    assert policy_step.launches == before + 4
+
+
+@pytest.mark.parametrize('batch,n_out', [(1, 64), (864, 64), (864, 1024),
+                                         (1664, 1024)])
+def test_teacher_proj_backward_matches_plain_and_repeats(device, batch,
+                                                         n_out):
+    """Kernel B4's backward against the chunked twin at
+    chip_smoke.check_teacher_proj_backward's tolerance (1e-5 of the
+    largest entry plus 1e-5 relative), identical over two runs."""
+    import chip_smoke
+    chip_smoke.check_teacher_proj_backward(batch, n_out, device)

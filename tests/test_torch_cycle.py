@@ -122,10 +122,6 @@ def test_train_entry_point_runs_dr_cycles(capsys):
     (['--ued_algo', 'alp_gmm'], NotImplementedError),
     (['--use_popart', 'true'], NotImplementedError),
     (['--bf16', 'true'], ValueError),
-    (['--ued_algo', 'paired', '--recurrent_adversary_env', 'false'],
-     NotImplementedError),
-    (['--ued_algo', 'paired', '--recurrent_adversary_env', 'true',
-      '--use_plr', 'true'], NotImplementedError),
     (['--log_action_complexity', 'true'], NotImplementedError),
     (['--checkpoint', 'true'], NotImplementedError),
     (['--archive_interval', '1'], NotImplementedError),

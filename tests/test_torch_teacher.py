@@ -296,8 +296,7 @@ def _check_teacher_proj_backward(B):
               for s, shape in ((0.2, (C, 3, 3, 3)), (0.1, (C,)), (1, (B, E)),
                                (0.01, (Nout, 13 * 13 * C + E)))]
     g_out = torch.tensor(rng.normal(size=(B, Nout)).astype(np.float32))
-    plain = lambda *a: tp.teacher_proj_plain(*a).detach()
-    out = tp.TeacherProj.apply(plain, img, *leaves)
+    out = tp.TeacherProj.apply(img, *leaves)
     got = torch.autograd.grad(out, leaves, g_out)
     want = torch.autograd.grad(tp.teacher_proj_plain(img, *leaves), leaves,
                                g_out)
@@ -306,9 +305,9 @@ def _check_teacher_proj_backward(B):
 
 
 def test_teacher_proj_backward_matches_autograd():
-    """The autograd Function that wraps the kernel on the card, run here
-    with the plain forward: its plain backward gives autograd's gradients
-    of conv weight, conv bias, e and W_i."""
+    """The autograd Function that wraps the kernels on the card, run here
+    with the plain twins: its backward (teacher_proj_backward_plain) gives
+    autograd's gradients of conv weight, conv bias, e and W_i."""
     _check_teacher_proj_backward(6)
 
 
@@ -317,6 +316,110 @@ def test_teacher_proj_backward_in_row_chunks(monkeypatch):
     teacher update's full batch): 11 rows in chunks of 4, 4 and 3."""
     monkeypatch.setattr(tp, 'CHUNK_BYTES', 4 * 4 * (13 * 13 * 64 + 60))
     _check_teacher_proj_backward(11)
+
+
+@pytest.mark.parametrize('n_out', [64, 1024])
+def test_teacher_proj_backward_plain_at_the_teachers_widths(n_out):
+    """B4's backward twin at the non-recurrent teacher's stacked trunk
+    (N = 64) and the recurrent teacher's LSTM input (N = 1024), conv-128
+    over 15x15 and E = 60: against autograd of ``embed_plain(...) @ W^T``
+    within 1e-5 of each gradient's largest entry (sums of up to 21 692
+    products in another order)."""
+    rng = np.random.default_rng(n_out)
+    B, C, E = 5, 128, 60
+    img = torch.tensor(rng.integers(0, 11, (B, 15, 15, 3)).astype(np.uint8))
+    leaves = [torch.tensor(rng.normal(scale=s, size=shape).astype(np.float32),
+                           requires_grad=True)
+              for s, shape in ((0.15, (C, 3, 3, 3)), (0.05, (C,)),
+                               (1, (B, E)), (0.007, (n_out, 13 * 13 * C + E)))]
+    g_out = torch.tensor(rng.normal(size=(B, n_out)).astype(np.float32))
+    got = tp.teacher_proj_backward_plain(img, *(x.detach() for x in leaves),
+                                         g_out)
+    want = torch.autograd.grad(
+        tp.embed_plain(img, *leaves[:3]) @ leaves[3].T, leaves, g_out)
+    for name, a, b in zip(('conv_w', 'conv_b', 'e', 'w_i'), got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()),
+                                   rtol=0, msg=lambda m: f'{name}: {m}')
+
+
+# -- (c') the non-recurrent teacher (--recurrent_adversary_env false) ------
+
+@pytest.fixture(scope='module')
+def flat_teachers():
+    """A flax teacher without a core at full width, its params and the
+    port's at those params, and seeded (T, B) inputs."""
+    p = JaxParams(**GOAL_LAST)
+    kw = dict(num_actions=p.adversary_action_dim, conv_filters=128,
+              scalar_fc=10, scalar_dim=p.adversary_max_steps + 1,
+              random_z_dim=p.random_z_dim, recurrent_arch=None)
+    jnet = JaxNetwork(**kw)
+    rng = np.random.default_rng(3)
+    obs = {'image': rng.integers(0, 11, (TT, BT, 15, 15, 3)).astype(np.uint8),
+           'time_step': rng.integers(0, 28, (TT, BT)).astype(np.int32),
+           'random_z': rng.random((TT, BT, 50)).astype(np.float32)}
+    jparams = jnet.init(jax.random.PRNGKey(9),
+                        jax.tree.map(lambda x: x[0], obs), (),
+                        jnp.ones((BT,)))
+    net = MultigridNetwork(view_size=p.size,
+                           **{**kw, 'recurrent_arch': 'none'})
+    net.load_state_dict(from_flax(jax.tree.map(np.asarray, jparams)))
+    masks = (rng.random((TT, BT)) > 0.2).astype(np.float32)
+    return jnet, jparams, net, obs, masks
+
+
+def test_from_flax_without_core(flat_teachers):
+    _, jparams, net, _, _ = flat_teachers
+    sd = from_flax(jax.tree.map(np.asarray, jparams))
+    assert 'core' not in jparams['params']
+    assert set(sd) == set(net.state_dict())
+    assert not any(k.startswith('core.') for k in sd)
+    assert sd['actor_trunk.0.weight'].shape == (32, 13 * 13 * 128 + 10 + 50)
+    assert sum(v.numel() for v in sd.values()) == sum(
+        x.size for x in jax.tree.leaves(jparams))
+
+
+def test_flat_teacher_forward_and_sequence_match(flat_teachers):
+    """One step (carry ``()``) and the (T, B) sequence within 1e-5 of JAX;
+    the first trunk layers go through B4's product with the stacked
+    (64, 21 692) weight."""
+    jnet, jparams, net, obs, masks = flat_teachers
+    assert not net.is_recurrent and net.fused_projection
+    assert net.initial_carry((BT,)) == ()
+    o0 = jax.tree.map(lambda x: x[0], obs)
+    outs = [(jnet.apply(jparams, o0, (), masks[0]),
+             net(tt(o0), (), torch.tensor(masks[0]))),
+            (jnet.apply(jparams, obs, (), masks, method='sequence'),
+             net.sequence(tt(obs), (), torch.tensor(masks)))]
+    for (jl, jv, jc), (tl, tv, tc) in outs:
+        assert jc == () and tc == () and tl.shape[-1] == 169
+        for a, b in ((jl, tl), (jv, tv)):
+            np.testing.assert_allclose(np.asarray(a), b.detach().numpy(),
+                                       atol=1e-5, rtol=0)
+
+
+def test_flat_teacher_gradients_match(flat_teachers):
+    """Gradients of a loss of the sequence's logits and values against
+    ``jax.grad`` within 1e-4 (B4's plain backward through the stacked
+    weight)."""
+    jnet, jparams, net, obs, masks = flat_teachers
+    rng = np.random.default_rng(4)
+    wl = rng.normal(size=(TT, BT, 169)).astype(np.float32)
+    wv = rng.normal(size=(TT, BT)).astype(np.float32)
+
+    def jloss(p):
+        logits, values, _ = jnet.apply(p, obs, (), masks, method='sequence')
+        return jnp.sum(jax.nn.log_softmax(logits) * wl) + jnp.sum(values * wv)
+
+    jgrads = from_flax(jax.tree.map(np.asarray, jax.grad(jloss)(jparams)))
+    logits, values, _ = net.sequence(tt(obs), (), torch.tensor(masks))
+    loss = ((torch.log_softmax(logits, -1) * torch.tensor(wl)).sum()
+            + (values * torch.tensor(wv)).sum())
+    names = [k for k, _ in net.named_parameters()]
+    for name, g in zip(names, torch.autograd.grad(loss,
+                                                  list(net.parameters()))):
+        np.testing.assert_allclose(g.numpy(), jgrads[name].numpy(),
+                                   atol=1e-4, rtol=0, err_msg=name)
 
 
 # -- (d) the construction rollout -----------------------------------------
