@@ -206,6 +206,7 @@ EDIT_ENVS = ('MultiGrid-GoalLastFewerBlocksAdversarial-EditWN-v0',
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 FP64_FLOPS = 34e12          # outside the tensor cores (the same data sheet)
+TF32_FLOPS = 495e12         # dense TF32 on the tensor cores (the same)
 
 
 def log(phase, t0, **kw):
@@ -560,13 +561,14 @@ CONV_PRE_GAMMA = 27 * 2.0 ** -24 / (1 - 27 * 2.0 ** -24)
 CONV_PRE_NEAR = 1e-5
 
 
-def kernel_conv_grads(img, conv_w, conv_b, e, w_i, grad):
+def kernel_conv_grads(img, conv_w, conv_b, e, w_i, grad, exact=False):
     """The conv weight and bias gradients of the projection with ReLU'
     taken as the kernels take it: from the pre-activation summed in their
     order (``csrc/teacher_proj.cu`` ``conv_pre``: the bias, then fmaf over
     q = (ci, di, dj) of w and byte / 10 rounded once).  Elsewhere it is
     the plain computation (dA = g W_i by matmul, the weight gradient by
-    ``conv2d_weight``), in the twin's row chunks.
+    ``conv2d_weight``), in the twin's row chunks; in float64 if ``exact``
+    (the gradients returned as float64).
 
     The pre-activation is computed in double (exact but for 28 ulps of
     double); where it lies within ``CONV_PRE_NEAR`` of its scale the
@@ -588,7 +590,9 @@ def kernel_conv_grads(img, conv_w, conv_b, e, w_i, grad):
     lut = torch.from_numpy(np.arange(256, dtype=np.float32)
                            / np.float32(10.0)).to(img.device)
     rows = max(1, int(tp.CHUNK_BYTES // (4 * w_i.shape[1])))
-    g_w, g_b = torch.zeros_like(conv_w), torch.zeros_like(conv_b)
+    wide = torch.float64 if exact else torch.float32
+    g_w = torch.zeros(conv_w.shape, dtype=wide, device=conv_w.device)
+    g_b = torch.zeros(conv_b.shape, dtype=wide, device=conv_b.device)
     wit = {'replayed': 0, 'kernel_vs_exact': 0, 'kernel_vs_twin': 0,
            'max_flip_pre_over_scale': 0.0,
            'rounding_bound_over_scale': CONV_PRE_GAMMA, 'flips': []}
@@ -632,26 +636,32 @@ def kernel_conv_grads(img, conv_w, conv_b, e, w_i, grad):
                                 mask[fb_, fc_, fi_, fj_]),
                             'pre_exact': float(pre[fb_, fc_, fi_, fj_]),
                             'pre_over_scale': ratio_})
-            da = (grad[r:r + rows] @ w_i[:, :kc]).view(
+            da = (grad[r:r + rows].to(wide) @ w_i[:, :kc].to(wide)).view(
                 -1, ox, oy, C).permute(0, 3, 1, 2) * mask
-            g_w += torch.nn.grad.conv2d_weight(x, conv_w.shape, da)
+            g_w += torch.nn.grad.conv2d_weight(x.to(wide), conv_w.shape, da)
             g_b += da.sum((0, 2, 3))
     return g_w, g_b, wit
 
 
-def check_teacher_proj(batch: int, device) -> dict:
+def check_teacher_proj(batch: int, n_out: int, device) -> dict:
     """Kernel B4 and its autograd gradients against the plain twin within
-    rtol = atol = 1e-4: each output sums 21 692 fp32 products, in another
-    order than cuBLAS and cuDNN sum them.  The conv gradients are held
-    against the twin with the kernels' ReLU' (``kernel_conv_grads``): a
-    pre-activation within rounding of zero may take the other side in
-    cuDNN's order: ``conv_twin_gap`` is the kernel's gap to the twin,
-    ``conv_flips_part`` what those flips alone move."""
+    rtol = atol = 1e-4, for N = 1024 (the recurrent teacher's W_i) or 64
+    (the teacher without a core): each output sums 21 692 fp32 products,
+    in another order than cuBLAS and cuDNN sum them.  The conv gradients
+    are held against the same computation in float64 with the kernels'
+    ReLU' (``kernel_conv_grads``, ``exact``): a pre-activation within
+    rounding of zero may take the other side in cuDNN's order, and the
+    conv gradients' sums over 146 016 terms of each sign cancel so far
+    that an fp32 reference is itself off by up to the tolerance.
+    ``conv_twin_gap`` is the kernel's gap to the twin, ``conv_flips_part``
+    what the flips alone move, ``conv_err_over_tol`` the largest error of
+    the kernel's conv gradients and of the fp32 reference's, as a share of
+    the tolerance."""
     import torch
     from dcd_isaac_tpu_torch.kernels.teacher_proj import (
         teacher_proj, teacher_proj_plain,
     )
-    img, *weights = teacher_inputs(batch, device)
+    img, *weights = teacher_backward_inputs(batch, n_out, device)[:5]
     g = torch.Generator(device=device)
     g.manual_seed(1)
     g_out = torch.randn((batch, weights[-1].shape[0]), generator=g,
@@ -665,22 +675,52 @@ def check_teacher_proj(batch: int, device) -> dict:
     (out, grads), (want, want_grads) = errs['kernel'], errs['plain']
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
     names = ('conv_w', 'conv_b', 'e', 'w_i')
-    *ref_conv, witness = kernel_conv_grads(img, *weights, g_out)
-    refs = (*ref_conv, *want_grads[2:])
+    *exact, witness = kernel_conv_grads(img, *weights, g_out, exact=True)
+    refs = (*exact, *want_grads[2:])
     for k, a, b in zip(names, grads, refs):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+        torch.testing.assert_close(a.to(b.dtype), b, rtol=1e-4, atol=1e-4,
                                    msg=lambda m: f'grad {k}: {m}')
-    return {'B': batch, 'max_abs_err': float((out - want).abs().max()),
+    *fp32_ref, _ = kernel_conv_grads(img, *weights, g_out)
+    over_tol = lambda a, x: float(((a.double() - x).abs()
+                                   / (1e-4 + 1e-4 * x.abs())).max())
+    return {'B': batch, 'N': n_out,
+            'max_abs_err': float((out - want).abs().max()),
             'max_abs_out': float(want.abs().max()),
-            'grad_max_abs_err': {k: float((a - b).abs().max()) for k, a, b
-                                 in zip(names, grads, refs)},
+            'grad_max_abs_err': {k: float((a.to(b.dtype) - b).abs().max())
+                                 for k, a, b in zip(names, grads, refs)},
             'grad_max_abs': {k: float(b.abs().max())
                              for k, b in zip(names, refs)},
             'conv_twin_gap': {k: float((a - b).abs().max()) for k, a, b
                               in zip(names[:2], grads, want_grads)},
             'conv_flips_part': {k: float((a - b).abs().max()) for k, a, b
-                                in zip(names[:2], ref_conv, want_grads)},
+                                in zip(names[:2], fp32_ref, want_grads)},
+            'conv_err_over_tol': {
+                who: {k: over_tol(a, x) for k, a, x in zip(names, got, exact)}
+                for who, got in (('kernel', grads),
+                                 ('fp32_reference', fp32_ref))},
             'relu_mask': witness}
+
+
+def check_teacher_proj_forward(batch: int, device) -> dict:
+    """Kernel B4's forward alone against the twin within rtol = atol =
+    1e-4, at bench.py's shapes (a construction step's B = 8192 and the
+    teacher update's 52 * 8192, where the forward needs no split-K and
+    writes its tiles straight into zx); the twin runs in CHUNK_BYTES row
+    chunks, as its (B, K) embed would not fit."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels import teacher_proj as tp
+    args = teacher_inputs(batch, device)
+    rows = max(1, int(tp.CHUNK_BYTES // (4 * args[-1].shape[1])))
+    with torch.no_grad():
+        out = tp.teacher_proj(*args)
+        want = in_row_chunks(tp.teacher_proj_plain, rows, *args)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    res = {'B': batch, 'N': args[-1].shape[0],
+           'max_abs_err': float((out - want).abs().max()),
+           'max_abs_out': float(want.abs().max())}
+    del out, want, args
+    torch.cuda.empty_cache()
+    return res
 
 
 def near_goal_moves(rng, n, interior=13, n_walls=25):
@@ -1554,12 +1594,14 @@ def time_carracing_kernels(device) -> dict:
     return out
 
 
-def bound(nbytes, flops, flops64=0.0):
+def bound(nbytes, flops, flops64=0.0, tf32=0.0):
     """(least ms for the work, 'bytes' or 'operations'): the larger of the
     bytes over the HBM rate and the operations over the peak of their type
-    (fp32 ``flops``, fp64 ``flops64``)."""
+    (fp32 ``flops`` on the CUDA cores, fp64 ``flops64``, TF32 ``tf32`` on
+    the tensor cores)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops / FP32_FLOPS + flops64 / FP64_FLOPS) * 1e3
+    t_ops = (flops / FP32_FLOPS + flops64 / FP64_FLOPS
+             + tf32 / TF32_FLOPS) * 1e3
     return (max(t_bytes, t_ops),
             'bytes' if t_bytes >= t_ops else 'operations')
 
@@ -1618,18 +1660,94 @@ def time_kernels(device) -> dict:
     return out
 
 
+def teacher_proj_bounds(nbytes, products, other) -> dict:
+    """B4's bound both ways: its own route, each fp32 product as three
+    TF32 products on the tensor cores (3xTF32) and the rest (``other``:
+    the conv, its gradient reduction) in fp32 on the CUDA cores; and
+    every operation in fp32 on the CUDA cores (``_fp32_simt``)."""
+    b_ms, b_by = bound(nbytes, other, tf32=3 * products)
+    s_ms, s_by = bound(nbytes, products + other)
+    return {'bound_ms': b_ms, 'bound_by': b_by,
+            'bound_ms_fp32_simt': s_ms, 'bound_by_fp32_simt': s_by}
+
+
+def in_row_chunks(fn, rows, *args):
+    """``fn`` over consecutive row chunks of its batch arguments (the
+    twins' CHUNK_BYTES budget: their (rows, K) embed would not fit)."""
+    import torch
+    return torch.cat([fn(*(a[r:r + rows] if i in (0, 3) else a
+                           for i, a in enumerate(args)))
+                      for r in range(0, args[0].shape[0], rows)])
+
+
+def paired_ms(kernel, twin, pairs: int) -> dict:
+    """Kernel and twin timed in turn ``pairs`` times (each call of
+    ``kernel`` or ``twin`` measures and returns ms), so that the card's
+    drift over a run falls on both alike: their medians, and the pairs
+    in which the kernel was the faster."""
+    got = [(kernel(), twin()) for _ in range(pairs)]
+    return {'ms': statistics.median(k for k, _ in got),
+            'plain_ms': statistics.median(t for _, t in got),
+            'pairs_won': sum(k < t for k, t in got), 'pairs': pairs}
+
+
+def time_teacher_proj(device) -> dict:
+    """B4's forward where the main paths run it: B = 32 (a construction
+    step), 27 * 32 (a teacher update, N = 1024 and the teacher without a
+    core's N = 64), 8192 (a construction step of bench.py's workload) and
+    52 * 8192 (its teacher update), paired with the twin (in CHUNK_BYTES
+    row chunks; ``paired_ms``), with both bounds and the library
+    yardstick: cuBLAS's SGEMM (``torch.matmul``) of a precomputed embed by
+    W_i^T, one call a row chunk, a call the port never makes."""
+    import torch
+    from dcd_isaac_tpu_torch.kernels import teacher_proj as tp
+    out = {}
+    with torch.no_grad():
+        for batch, n_out, inner, pairs in (
+                (MAIN_N, 1024, 20, 9), (27 * MAIN_N, 1024, 5, 9),
+                (27 * MAIN_N, 64, 5, 9), (BENCH_SIZE_N, 1024, 1, 5),
+                (52 * BENCH_SIZE_N, 1024, 1, 3)):
+            args = teacher_backward_inputs(batch, n_out, device)[:5]
+            img, conv_w, conv_b, e, w_i = args
+            k = w_i.shape[1]
+            conv_dim = k - e.shape[1]
+            rows = max(1, int(tp.CHUNK_BYTES // (4 * k)))
+            nbytes = (w_i.numel() * 4 + img.numel() + conv_w.numel() * 4
+                      + conv_b.numel() * 4 + e.numel() * 4 + batch * n_out * 4)
+            samples = 5 if inner > 1 else 1
+            times = {**paired_ms(
+                         lambda: (graph_ms if inner > 1 else device_ms)(
+                             lambda: tp.teacher_proj(*args), inner, samples),
+                         lambda: device_ms(
+                             lambda: in_row_chunks(tp.teacher_proj_plain,
+                                                   rows, *args), 1, samples),
+                         pairs),
+                     **teacher_proj_bounds(nbytes, 2 * batch * k * n_out,
+                                           2 * 27 * batch * conv_dim)}
+            full, rest = divmod(batch, rows)
+            library = 0.0
+            for n_rows, count in ((rows, full), (rest, 1)):
+                if n_rows and count:
+                    a = tp.embed_plain(img[:n_rows], conv_w, conv_b,
+                                       e[:n_rows])
+                    library += count * device_ms(
+                        lambda: torch.matmul(a, w_i.T), 1, min(pairs, 5))
+                    del a
+            times['library_ms'] = library
+            suffix = ('' if batch == MAIN_N else f'_b{batch}') + (
+                '' if n_out == 1024 else f'_n{n_out}')
+            out.update({f'{k_}{suffix}': v for k_, v in times.items()})
+            del args, img, e
+            torch.cuda.empty_cache()
+    return {'teacher_proj': out}
+
+
 def time_teacher_kernels(device) -> dict:
     """Kernel B5 (a construction move, the final move with its BFS, the BFS
-    alone) at N = 32 and kernel B4 at B = 32 (a construction step) and
-    B = 27 * 32 (the teacher update), with their plain twins and bounds;
-    for B4 also ``torch.matmul`` of the materialised embed by W_i
-    (``gemm_matmul_ms``), a yardstick the port never calls."""
+    alone) at N = 32, with its plain twin and bound."""
     import torch
     from dcd_isaac_tpu_torch.envs.registry import make_env
     from dcd_isaac_tpu_torch.kernels import multigrid_adversary as ma
-    from dcd_isaac_tpu_torch.kernels.teacher_proj import (
-        embed_plain, teacher_proj, teacher_proj_plain,
-    )
     env = make_env(ENV_NAME)
     p = env.params
     n = MAIN_N
@@ -1668,22 +1786,6 @@ def time_teacher_kernels(device) -> dict:
             'plain_ms': device_ms(
                 lambda: ma.shortest_path_plain(grid, start, goal, 170), 1, 20),
             'bound_ms': b_ms, 'bound_by': b_by}
-        for batch, inner in ((MAIN_N, 20), (27 * MAIN_N, 5)):
-            args = teacher_inputs(batch, device)
-            img, conv_w, conv_b, e, w_i = args
-            n_out, k = w_i.shape
-            conv_dim = k - e.shape[1]
-            nbytes = (w_i.numel() * 4 + img.numel() + conv_w.numel() * 4
-                      + conv_b.numel() * 4 + e.numel() * 4 + batch * n_out * 4)
-            flops = 2 * batch * k * n_out + 2 * 27 * batch * conv_dim
-            b_ms, b_by = bound(nbytes, flops)
-            a = embed_plain(img, conv_w, conv_b, e)
-            out[f'teacher_proj_b{batch}'] = {
-                'ms': graph_ms(lambda: teacher_proj(*args), inner),
-                'plain_ms': device_ms(lambda: teacher_proj_plain(*args), 1, 10),
-                'bound_ms': b_ms, 'bound_by': b_by,
-                'gemm_matmul_ms': device_ms(lambda: torch.matmul(a, w_i.T), 1,
-                                            10)}
     return out
 
 
@@ -1704,20 +1806,20 @@ def policy_step_work(w, B) -> tuple:
 
 
 def teacher_proj_backward_work(img, e, w_i, parts=3) -> tuple:
-    """(bytes, fp32 operations) of B4's backward (``parts`` 1 dW, 2 dA,
-    3 both): the image, e, W_i, the upstream gradient and the conv weights
-    read once, dW, g_e and the conv gradients written once; the products
-    2 B N K each, the conv recomputed (2 B conv_dim 27, needed for ReLU')
-    and reduced into its gradients (2 B conv_dim 28)."""
+    """(bytes, product operations, other fp32 operations) of B4's backward
+    (``parts`` 1 dW, 2 dA, 3 both): the image, e, W_i, the upstream
+    gradient and the conv weights read once, dW, g_e and the conv
+    gradients written once; the products 2 B N K each; the conv computed
+    once (2 B conv_dim 27: A for dW, ReLU' for dA) and, for dA, reduced
+    into its gradients (2 B conv_dim 28)."""
     B, N, K, E = img.shape[0], w_i.shape[0], w_i.shape[1], e.shape[1]
     conv_dim, C = K - E, 128
     read = img.numel() + 4 * (N * K + B * N + C * 28)
-    dw = (4 * N * K, 2 * B * N * K)
-    da = (4 * (B * E + C * 28) + 4 * B * E,
-          2 * B * N * K + 2 * B * conv_dim * (27 + 28))
-    nbytes = read + (dw[0] if parts & 1 else 0) + (da[0] if parts & 2 else 0)
-    flops = (dw[1] if parts & 1 else 0) + (da[1] if parts & 2 else 0)
-    return nbytes, flops
+    nbytes = (read + (4 * N * K if parts & 1 else 0)
+              + (4 * (B * E + C * 28) + 4 * B * E if parts & 2 else 0))
+    products = 2 * B * N * K * ((parts & 1) + (parts >> 1))
+    other = 2 * B * conv_dim * (27 + (28 if parts & 2 else 0))
+    return nbytes, products, other
 
 
 def time_policy_kernels(device) -> dict:
@@ -1751,28 +1853,34 @@ def time_teacher_backward(device) -> dict:
     """B4's backward (dW, dA and both) at the teacher updates' shapes: B =
     27 * 32 rows for N = 1024 (the recurrent teacher) and N = 64 (the
     teacher without a core), and bench.py's B = 52 * 8192 at N = 1024,
-    with the twin and the bound."""
+    with the bound and the twin, the two paired (``paired_ms``)."""
     import torch
     from dcd_isaac_tpu_torch.kernels import teacher_proj as tp
     out = {}
-    for batch, n_out, samples in ((27 * MAIN_N, 1024, 10),
-                                  (27 * MAIN_N, 64, 10),
-                                  (52 * BENCH_SIZE_N, 1024, 2)):
+    for batch, n_out, samples, pairs in ((27 * MAIN_N, 1024, 10, 9),
+                                         (27 * MAIN_N, 64, 10, 9),
+                                         (52 * BENCH_SIZE_N, 1024, 2, 3)):
         args = teacher_backward_inputs(batch, n_out, device)
         img, _, _, e, w_i, _ = args
         suffix = '' if (batch, n_out) == (27 * MAIN_N, 1024) else (
             f'_n{n_out}' if batch == 27 * MAIN_N else f'_b{batch}')
         for name, parts in (('', 3), ('_dw', 1), ('_da', 2)):
-            b_ms, b_by = bound(*teacher_proj_backward_work(img, e, w_i,
-                                                           parts))
-            out.update({
-                f'ms{name}{suffix}': device_ms(
+            bounds = teacher_proj_bounds(*teacher_proj_backward_work(
+                img, e, w_i, parts))
+            if parts == 3:
+                each = (samples + 2) // 4
+                pair = paired_ms(
+                    lambda: device_ms(lambda: tp._launch_backward(*args),
+                                      1, each),
+                    lambda: device_ms(
+                        lambda: tp.teacher_proj_backward_plain(*args), 1,
+                        each), pairs)
+                out.update({f'{k}{suffix}': v for k, v in pair.items()})
+            else:
+                out[f'ms{name}{suffix}'] = device_ms(
                     lambda: tp._launch_backward(*args, parts=parts), 1,
-                    samples),
-                f'bound_ms{name}{suffix}': b_ms,
-                f'bound_by{name}{suffix}': b_by})
-        out[f'plain_ms{suffix}'] = device_ms(
-            lambda: tp.teacher_proj_backward_plain(*args), 1, samples)
+                    samples)
+            out.update({f'{k}{name}{suffix}': v for k, v in bounds.items()})
         del args, img, e, w_i
         torch.cuda.empty_cache()
     return {'teacher_proj_backward': out}
@@ -3182,7 +3290,11 @@ def main() -> int:
             f'levels, {bfs["unsolvable"]} unsolvable BFS levels')
     log('adversary_vs_plain', t0, step=adv, shortest_path=bfs)
     t0 = time.perf_counter()
-    proj = [check_teacher_proj(b, device) for b in (MAIN_N, 27 * MAIN_N)]
+    proj = [check_teacher_proj(b, n, device)
+            for b, n in ((MAIN_N, 1024), (27 * MAIN_N, 1024),
+                         (27 * MAIN_N, 64))]
+    proj += [check_teacher_proj_forward(b, device)
+             for b in (BENCH_SIZE_N, 52 * BENCH_SIZE_N)]
     log('teacher_proj_vs_plain', t0, checks=proj)
     t0 = time.perf_counter()
     pol = [check_policy_step(b, device) for b in (MAIN_N, BENCH_SIZE_N)]
@@ -3355,6 +3467,7 @@ def main() -> int:
     t0 = time.perf_counter()
     times = time_kernels(device)
     times.update(time_teacher_kernels(device))
+    times.update(time_teacher_proj(device))
     times.update(time_training_kernels(device))
     times.update(time_plr_kernels(device))
     times.update(time_walker_kernels(device))
@@ -3693,10 +3806,6 @@ def main() -> int:
     times['plr_promote'].update(
         {f'{k}_float_levels': v
          for k, v in times.pop('plr_promote_float').items()})
-    times['teacher_proj'] = times.pop(f'teacher_proj_b{MAIN_N}')
-    big = times.pop(f'teacher_proj_b{27 * MAIN_N}')
-    times['teacher_proj'].update({f'{k}_b{27 * MAIN_N}': v
-                                  for k, v in big.items()})
     times['multigrid_adversary_step']['ms_final_move'] = times.pop(
         'multigrid_adversary_step_final')['ms']
     meta = {
@@ -3763,8 +3872,8 @@ def main() -> int:
                 'launches_by_path': {k: c[name] for k, c in by_path.items()},
                 **{f'launches_{e}': sum(c[e] for c in by_path.values())
                    for e in extra.get(name, ())},
-                'max_abs_err': errs[name], **times[name],
-                **grad_errs.get(name, {}), 'library_ms': None}
+                'max_abs_err': errs[name], 'library_ms': None, **times[name],
+                **grad_errs.get(name, {})}
                for name, (src, rep) in meta.items()]
     log('total', t_all)
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -182,4 +182,8 @@ def check_args(args: argparse.Namespace) -> argparse.Namespace:
         raise NotImplementedError(
             f'--archive_interval {args.archive_interval} is not ported yet '
             f'(checkpoint archives): {waits}')
+    if args.xpid_finetune is not None:
+        raise NotImplementedError(
+            f'--xpid_finetune {args.xpid_finetune} is not ported yet '
+            f'(loading a base run\'s agent): {waits}')
     return args

@@ -42,7 +42,7 @@ SIGNATURES = {
     'dcd_adversary_step': [_P] * 24 + [_I] * 8 + [_F, _I, _P],
     'dcd_multigrid_shortest_path': [_P] * 5 + [_I] * 4 + [_P],
     'dcd_teacher_proj': [_P] * 7 + [_I] * 6 + [_P],
-    'dcd_teacher_proj_workspace': [_I] * 4,
+    'dcd_teacher_proj_workspace': [_I] * 5,
     'dcd_teacher_proj_backward': [_P] * 11 + [_I] * 7 + [_P],
     'dcd_teacher_proj_backward_workspace': [_I] * 5,
     'dcd_policy_step': [_P] * 32 + [_I] * 5 + [_P],

@@ -4,26 +4,38 @@ Replaces the forward of ``dcd_isaac_tpu/models/multigrid_models.py``
 ``_core_sequence.zx_chunk`` (:120-152) with ``_embed`` (:75-89):
 ``zx = [relu(conv3x3(img / 10) + b) flattened (h, w, c) || e] @ W_i^T``,
 with ``e`` (B, E) the scalar embed and ``random_z`` computed by the caller.
-The CUDA source is ``csrc/teacher_proj.cu``: a tiled fp32 GEMM whose
-prologue computes each K-tile of conv features from the image as it is
-consumed, so the (B, 21 692) activation never reaches device memory (the
-point of JAX's chunked hoist), split over K so that a construction step's
-B = 32 fills the card.  It is bound by W_i's bytes at B = 32 and by
-operations at the update's B = 27 * 32.
+The CUDA source is ``csrc/teacher_proj.cu``.  Its products run on the
+tensor cores at fp32 accuracy (3xTF32 on ``mma.sync``): each fp32 operand
+is split into a TF32 high and low part (:func:`tf32_split` is that
+rounding in plain PyTorch, for tests), each product is taken as three
+TF32 products accumulated in fp32, and each accumulator is folded into a
+second one every 128 terms with a rounded add.  The forward computes
+each K-tile of conv features from the images' patches as it is consumed,
+so the (B, 21 692) activation never reaches device memory (the point of
+JAX's chunked hoist), split over K so that a construction step's B = 32
+fills the card.  It is bound by W_i's bytes at B = 32 and by operations
+at the update's B = 27 * 32: the products and, on the CUDA cores, the
+conv and the operand splits.
 
 The backward is two more kernels of the same file (:func:`_launch_backward`):
-dW = g^T A with A's conv tiles recomputed from the image, and dA = g W_i,
-whose conv columns times ReLU' reduce straight into the conv weight and
-bias gradients and whose last E columns are ``g_e``, with fixed-order sums
-of their split partials.  Neither writes the (B, K) embed, so the teacher
-update's memory stays bounded at ``bench.py``'s B = 52 * 8192.  Its plain
-twin, :func:`teacher_proj_backward_plain`, recomputes the embed in row
-chunks of about 0.5 GB, as JAX's checkpointed chunks do, with two
-``torch.matmul`` and the conv's autograd per chunk.  :func:`teacher_proj`
-takes the plain twins for CPU tensors (:func:`teacher_proj_plain`,
-autograd throughout), and launches the kernels or raises for CUDA
-tensors.  The kernels take N = 1024 (the recurrent teacher's LSTM input)
-and N = 64 (the non-recurrent teacher's stacked first trunk layers).
+dW = g^T A with A's conv tiles recomputed from the images (shared by the
+cluster of CTAs of one K-tile through distributed shared memory), and dA =
+g W_i, whose conv columns times ReLU' reduce straight into the conv weight
+and bias gradients and whose last E columns are ``g_e``.  Every operand is
+read by the tensor cores in the layout it is staged in, so neither needs a
+transposed copy.  Split partials (the forward's K splits, dW's row
+splits, each pixel's share of the conv gradients) are summed in a fixed
+order: two runs give the same bits.  Neither pass writes the (B, K)
+embed, so the teacher update's memory stays bounded at ``bench.py``'s B =
+52 * 8192; the workspace holds the images' patches (32 bytes a row and
+pixel) and the split partials.  The plain twin of the backward,
+:func:`teacher_proj_backward_plain`, recomputes the embed in row chunks of
+about 0.5 GB, as JAX's checkpointed chunks do, with two ``torch.matmul``
+and the conv's autograd per chunk.  :func:`teacher_proj` takes the plain
+twins for CPU tensors (:func:`teacher_proj_plain`, autograd throughout),
+and launches the kernels or raises for CUDA tensors.  The kernels take N
+= 1024 (the recurrent teacher's LSTM input) and N = 64 (the non-recurrent
+teacher's stacked first trunk layers).
 """
 
 from __future__ import annotations
@@ -33,11 +45,11 @@ import torch.nn.functional as F
 
 from . import _build
 
-# The kernel's shape rules (csrc/teacher_proj.cu, which checks them again
-# in dcd_teacher_proj_workspace): the conv filters a multiple of its K-tile
-# kBK up to kMaxC, and K a multiple of 4 for its 16-byte copies of W_i.  The
-# backward's K-tile is one pixel's 128 channels (C = 128, the teacher's),
-# and it takes N a multiple of 8.
+# The kernels' shape rules (csrc/teacher_proj.cu, which checks them again
+# in dcd_teacher_proj_workspace): the conv filters a multiple of the
+# forward's 32-channel K-step up to kMaxC, K a multiple of 4 for 16-byte
+# copies of W_i, and N a multiple of 8.  The backward's K-tile is one
+# pixel's 128 channels (C = 128, the teacher's).
 BK = 32
 MAX_FILTERS = 128
 # Rows of the embed the backward rebuilds at once: about 0.5 GB of fp32
@@ -58,6 +70,23 @@ def teacher_proj_plain(img, conv_w, conv_b, e, w_i) -> torch.Tensor:
     return embed_plain(img, conv_w, conv_b, e) @ w_i.T
 
 
+def tf32_split(x: torch.Tensor) -> tuple:
+    """(hi, lo) float32 of float32 ``x``: hi = x rounded to TF32, lo = the
+    TF32 rounding of x - hi (exact in float32), as the kernels split their
+    operands with ``cvt.rna.tf32.f32``: to nearest, ties away from zero, 10
+    mantissa bits; a value past the largest TF32 rounds to infinity, and
+    infinities and NaNs are kept.  For tests: the kernels split on the
+    card, and nothing on the main path calls this."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        # half an ulp of TF32 added to the magnitude bits, then truncated
+        rounded = (bits + 0x1000) & -0x2000
+        return torch.where(torch.isfinite(v), rounded, bits).view(
+            torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 def _launch(img, conv_w, conv_b, e, w_i) -> torch.Tensor:
     """The forward kernel (counted in ``teacher_proj.launches``)."""
     B, X, Y, _ = img.shape
@@ -65,12 +94,12 @@ def _launch(img, conv_w, conv_b, e, w_i) -> torch.Tensor:
     N, K = w_i.shape
     E = e.shape[1]
     lib = _build.library()
-    ws_floats = lib.dcd_teacher_proj_workspace(B, N, K, C)
+    ws_floats = lib.dcd_teacher_proj_workspace(B, N, K, C, E)
     if ws_floats < 0:
         raise ValueError(f'teacher_proj: no kernel plan for C={C}, K={K}')
     out = torch.empty((B, N), dtype=torch.float32, device=img.device)
-    ws = (torch.empty(ws_floats, dtype=torch.float32, device=img.device)
-          if ws_floats else out)
+    ws = torch.empty(max(ws_floats, 4), dtype=torch.float32,
+                     device=img.device)
     rc = lib.dcd_teacher_proj(
         img.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(), e.data_ptr(),
         w_i.data_ptr(), out.data_ptr(), ws.data_ptr(), B, X, Y, C, E, N,
@@ -184,7 +213,7 @@ def teacher_proj(img, conv_w, conv_b, e, w_i) -> torch.Tensor:
     if K % 4:
         raise ValueError(f'K = {K}: the kernel takes a multiple of 4')
     if w_i.shape[0] % 8:
-        raise ValueError(f'N = {w_i.shape[0]}: the backward takes a multiple '
+        raise ValueError(f'N = {w_i.shape[0]}: the kernels take a multiple '
                          f'of 8')
     return TeacherProj.apply(img, conv_w, conv_b, e, w_i)
 

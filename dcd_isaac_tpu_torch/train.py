@@ -44,7 +44,9 @@ def main(argv=None):
           f'--log_dir {args.log_dir} yet (ROADMAP queue A.4); the stats go '
           f'to stdout, one JSON line per cycle; --test_env_names '
           f'{args.test_env_names} and in-training evaluation wait for the '
-          f'same slice', file=sys.stderr)
+          f'same slice, and so do --screenshot_interval, '
+          f'--weight_log_interval, --log_interval and --test_interval, '
+          f'which are read and ignored', file=sys.stderr)
     runner = setup(args)
 
     num_updates = args.num_env_steps // args.num_steps // args.num_processes

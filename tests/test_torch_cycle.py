@@ -125,6 +125,7 @@ def test_train_entry_point_runs_dr_cycles(capsys):
     (['--log_action_complexity', 'true'], NotImplementedError),
     (['--checkpoint', 'true'], NotImplementedError),
     (['--archive_interval', '1'], NotImplementedError),
+    (['--xpid_finetune', 'base_run'], NotImplementedError),
     # CarRacing: the teacher, ACCEL's mutate_level, the evaluation tracks
     # and checkpoints wait for later slices
     (['--env_name', 'CarRacing-Bezier-Adversarial-v0', '--ued_algo',
@@ -139,6 +140,16 @@ def test_train_entry_point_runs_dr_cycles(capsys):
 def test_unported_settings_are_refused(flags, error):
     with pytest.raises(error):
         train.main(DR_FLAGS + flags)
+
+
+def test_ignored_flags_are_named_on_stderr(capsys):
+    """Flags that shipped configs set and the port reads and ignores
+    until the entry-points slice are named on stderr, not refused."""
+    train.main(DR_FLAGS + ['--num_env_steps', '0'])
+    err = capsys.readouterr().err
+    for flag in ('--screenshot_interval', '--weight_log_interval',
+                 '--log_interval', '--test_interval'):
+        assert flag in err
 
 
 def test_train_runs_on_the_card_unless_no_cuda(monkeypatch):
