@@ -17,8 +17,9 @@ Phases, each printing one JSON line with its wall time:
      variants (goal last with 25 blocks, goal first with 50, variable
      blocks, noisy goal), and its BFS alone (``shortest_path``) on 4096
      random levels; the LSTM recurrence of BPTT (``lstm_seq``) forward
-     and backward at T = 256, N = 32 and T = 52, N = 1024 (outputs within
-     1e-5, gradients within atol = rtol = 1e-4); the PPO loss
+     and backward at T = 256, N = 32, 8192 and 1000 and T = 52, N = 1024
+     (outputs within 1e-5, gradients within atol = rtol = 1e-4, two runs
+     bit-identical, the launch plans); the PPO loss
      (``ppo_loss``) at the students' and the teacher's widths, its means
      within 1e-6 relative of the float64 twin, its gradients within 1e-5 of
      the twin's largest entry plus 1e-5 relative, both bit-identical over
@@ -824,29 +825,42 @@ def lstm_inputs(T, N, device, seed=0):
 def check_lstm_seq(T, N, device) -> dict:
     """Kernel B3 forward and backward against the plain twins: outputs
     within 1e-5, gradients within atol + rtol * |ref| = 1e-4 + 1e-4 * |ref|
-    (each z sums 256 products, dW_h T * N * 256, in another order than
-    cuBLAS)."""
+    (each z sums 256 products in another order than cuBLAS; dW_h sums T * N
+    rows, in float64 on both sides); two runs bit-identical."""
     import torch
     from dcd_isaac_tpu_torch.kernels.lstm_seq import (
-        lstm_seq, lstm_seq_plain_backward, lstm_seq_plain_forward,
+        lstm_seq, lstm_seq_plain_backward, lstm_seq_plain_forward, plan,
     )
     x, (g_h, g_c) = lstm_inputs(T, N, device)
-    leaves = {k: v.clone().requires_grad_(k != 'masks') for k, v in x.items()}
-    h_all, (c_T, _) = lstm_seq(*leaves.values())
     names = ('zx', 'w_h', 'b', 'c0', 'h0')
-    grads = torch.autograd.grad((h_all, c_T), [leaves[k] for k in names],
-                                (g_h, g_c))
+    for k in names:
+        x[k].requires_grad_()
+    runs = []
+    for _ in range(2):
+        h_all, (c_T, _) = lstm_seq(*x.values())
+        grads = torch.autograd.grad((h_all, c_T), [x[k] for k in names],
+                                    (g_h, g_c))
+        runs.append((h_all.detach(), c_T.detach(), *grads))
+        del h_all, c_T, grads
+    identical = all(torch.equal(a, b) for a, b in zip(*runs))
+    if not identical:
+        raise AssertionError(f'lstm_seq ({T}, {N}): two runs differ')
+    h_all, c_T, *grads = runs.pop()
+    runs.clear()
     with torch.no_grad():
+        x = {k: v.detach() for k, v in x.items()}
         want_h, want_c, (want_cT, _) = lstm_seq_plain_forward(**x)
         want_grads = lstm_seq_plain_backward(g_h, g_c, *x.values(), want_h,
                                              want_c)
-    h_all, c_T = h_all.detach(), c_T.detach()
-    torch.testing.assert_close(h_all, want_h, atol=1e-5, rtol=0)
-    torch.testing.assert_close(c_T, want_cT, atol=1e-5, rtol=0)
+    torch.testing.assert_close(h_all, want_h, atol=1e-5, rtol=0,
+                               msg=lambda m: f'h_all ({T}, {N}): {m}')
+    torch.testing.assert_close(c_T, want_cT, atol=1e-5, rtol=0,
+                               msg=lambda m: f'c_T ({T}, {N}): {m}')
     for k, a, b in zip(names, grads, want_grads):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
-                                   msg=lambda m: f'grad {k}: {m}')
-    return {'T': T, 'N': N,
+                                   msg=lambda m: f'grad {k} ({T}, {N}): {m}')
+    return {'T': T, 'N': N, 'two_runs_identical': identical,
+            'plan': plan(N, 256), 'plan_backward': plan(N, 256, True),
             'max_abs_err': max(float((h_all - want_h).abs().max()),
                                float((c_T - want_cT).abs().max())),
             'grad_max_abs_err': {k: float((a - b).abs().max()) for k, a, b
@@ -1660,13 +1674,16 @@ def time_kernels(device) -> dict:
     return out
 
 
-def teacher_proj_bounds(nbytes, products, other) -> dict:
-    """B4's bound both ways: its own route, each fp32 product as three
-    TF32 products on the tensor cores (3xTF32) and the rest (``other``:
-    the conv, its gradient reduction) in fp32 on the CUDA cores; and
-    every operation in fp32 on the CUDA cores (``_fp32_simt``)."""
-    b_ms, b_by = bound(nbytes, other, tf32=3 * products)
-    s_ms, s_by = bound(nbytes, products + other)
+def tf32_bounds(nbytes, products, other, side_products=0.0) -> dict:
+    """A 3xTF32 kernel's bound both ways: its own route, each fp32 product
+    of ``products`` as three TF32 products on the tensor cores and the rest
+    (``other``: B4's conv and its gradient reduction, B3's cell) in fp32 on
+    the CUDA cores, with ``side_products`` that cuBLAS computes beside the
+    kernel (B3's dW_h, in float64 on the FP64 tensor cores, whose 67
+    TFLOP/s equal the CUDA cores' fp32 rate); and every operation in fp32
+    on the CUDA cores (``_fp32_simt``)."""
+    b_ms, b_by = bound(nbytes, other + side_products, tf32=3 * products)
+    s_ms, s_by = bound(nbytes, products + other + side_products)
     return {'bound_ms': b_ms, 'bound_by': b_by,
             'bound_ms_fp32_simt': s_ms, 'bound_by_fp32_simt': s_by}
 
@@ -1722,8 +1739,8 @@ def time_teacher_proj(device) -> dict:
                              lambda: in_row_chunks(tp.teacher_proj_plain,
                                                    rows, *args), 1, samples),
                          pairs),
-                     **teacher_proj_bounds(nbytes, 2 * batch * k * n_out,
-                                           2 * 27 * batch * conv_dim)}
+                     **tf32_bounds(nbytes, 2 * batch * k * n_out,
+                                   2 * 27 * batch * conv_dim)}
             full, rest = divmod(batch, rows)
             library = 0.0
             for n_rows, count in ((rows, full), (rest, 1)):
@@ -1865,7 +1882,7 @@ def time_teacher_backward(device) -> dict:
         suffix = '' if (batch, n_out) == (27 * MAIN_N, 1024) else (
             f'_n{n_out}' if batch == 27 * MAIN_N else f'_b{batch}')
         for name, parts in (('', 3), ('_dw', 1), ('_da', 2)):
-            bounds = teacher_proj_bounds(*teacher_proj_backward_work(
+            bounds = tf32_bounds(*teacher_proj_backward_work(
                 img, e, w_i, parts))
             if parts == 3:
                 each = (samples + 2) // 4
@@ -1888,10 +1905,12 @@ def time_teacher_backward(device) -> dict:
 
 def time_training_kernels(device) -> dict:
     """Kernels B3 and B7 on the update path, with their plain twins and
-    bounds: B3's forward pass and its backward pass (the recompute and dh
-    kernels plus the dW_h matmul) at T = 256, H = 256 for N = 32 (the
-    slices) and N = 8192 (bench.py); B7's forward and backward at R = T * N
-    rows for the same two N, and the advantage normalisation."""
+    bounds: B3's forward pass and its backward pass (one kernel for the
+    recomputed gates and dz @ W_h, then the float64 dW_h products), the
+    backward's kernel apart, each per pass and per step, with both bounds
+    (3xTF32 and fp32) and the launch plans, at T = 256, H = 256 for N = 32
+    (the slices) and N = 8192 (bench.py); B7's forward and backward at
+    R = T * N rows for the same two N, and the advantage normalisation."""
     import torch
     from dcd_isaac_tpu_torch.kernels import lstm_seq as ls
     from dcd_isaac_tpu_torch.kernels import ppo_loss as pl
@@ -1901,28 +1920,39 @@ def time_training_kernels(device) -> dict:
         x, (g_h, g_c) = lstm_inputs(MAIN_T, n, device)
         args = tuple(x.values())
         tnh = MAIN_T * n * H
+        prod = 2 * tnh * 4 * H      # one recurrent product over the pass
         with torch.no_grad():
             h_all, c_all = ls._launch_forward(*args)
             bwd_args = (g_h, g_c, *args, h_all, c_all)
-            # the forward reads zx and writes c and h; the backward reads zx,
-            # c, h and dh, writes dzx; each product 2 * T * N * H * 4H
-            fwd = bound(4 * (4 * tnh + 2 * tnh), 2 * tnh * 4 * H + 30 * tnh)
-            bwd = bound(4 * (4 * tnh + 3 * tnh + 4 * tnh),
-                        3 * 2 * tnh * 4 * H + 40 * tnh)
-            suffix = '' if n == MAIN_N else f'_n{n}'
-            out['lstm_seq'].update({
-                f'ms{suffix}': graph_ms(lambda: ls._launch_forward(*args),
-                                        inner, samples),
-                f'plain_ms{suffix}': device_ms(
+            # the forward reads zx and writes c and h; the backward reads
+            # zx, c, h and dh and writes dzx; its kernel takes two products
+            # (z recomputed, dz @ W_h), its dW_h a third in float64
+            fwd = tf32_bounds(4 * (4 * tnh + 2 * tnh), prod, 30 * tnh)
+            bwd_bytes = 4 * (4 * tnh + 3 * tnh + 4 * tnh)
+            bwd_k = tf32_bounds(bwd_bytes, 2 * prod, 40 * tnh)
+            bwd = tf32_bounds(bwd_bytes, 2 * prod, 40 * tnh,
+                              side_products=prod)
+            sfx = '' if n == MAIN_N else f'_n{n}'
+            ms = graph_ms(lambda: ls._launch_forward(*args), inner, samples)
+            ms_b = graph_ms(lambda: ls._launch_backward(*bwd_args), inner,
+                            samples)
+            ms_k = graph_ms(lambda: ls._backward_kernel(*bwd_args), inner,
+                            samples)
+            row = {
+                'ms': ms, 'ms_per_step': ms / MAIN_T,
+                'plain_ms': device_ms(
                     lambda: ls.lstm_seq_plain_forward(*args), 1, samples),
-                f'bound_ms{suffix}': fwd[0], f'bound_by{suffix}': fwd[1],
-                f'ms_backward{suffix}': graph_ms(
-                    lambda: ls._launch_backward(*bwd_args), inner, samples),
-                f'plain_ms_backward{suffix}': device_ms(
+                **fwd,
+                'ms_backward': ms_b,
+                'ms_backward_kernel': ms_k,
+                'ms_backward_kernel_per_step': ms_k / MAIN_T,
+                'plain_ms_backward': device_ms(
                     lambda: ls.lstm_seq_plain_backward(*bwd_args), 1,
                     samples),
-                f'bound_ms_backward{suffix}': bwd[0],
-                f'bound_by_backward{suffix}': bwd[1]})
+                **{f'{k}_backward': v for k, v in bwd.items()},
+                **{f'{k}_backward_kernel': v for k, v in bwd_k.items()},
+                'plan': ls.plan(n, H), 'plan_backward': ls.plan(n, H, True)}
+            out['lstm_seq'].update({k + sfx: v for k, v in row.items()})
         del x, args, h_all, c_all, bwd_args, g_h, g_c
         torch.cuda.empty_cache()
 
@@ -3267,7 +3297,9 @@ def main() -> int:
               'gae': [check_gae(MAIN_T, n, proper, device)
                       for n in (MAIN_N, 4096) for proper in (True, False)],
               'lstm_seq': [check_lstm_seq(t, n, device)
-                           for t, n in ((MAIN_T, MAIN_N), (52, 1024))],
+                           for t, n in ((MAIN_T, MAIN_N), (52, 1024),
+                                        (MAIN_T, BENCH_SIZE_N),
+                                        (MAIN_T, 1000))],
               'ppo_loss': [check_ppo_loss(r, a, cv, device)
                            for r, a, cv in ((MAIN_T * MAIN_N, 7, True),
                                             (MAIN_T * MAIN_N, 7, False),
@@ -3439,16 +3471,16 @@ def main() -> int:
             raise AssertionError(f'{phase}: launches short={short}')
 
     # B3 and B7 in one cycle: a forward and a backward pass in each of 5
-    # epochs of 1 minibatch for each net (the student of DR; the two
-    # students and the teacher of PAIRED), the nets' sequences `steps` long.
-    # B3 launches T step kernels forward and T + 1 backward; B7 two kernels
-    # forward and one backward; the normalisation two once an update.
-    def update_launches(steps):
-        return {'lstm_seq': sum(5 * (2 * t + 1) for t in steps),
-                'lstm_seq_backward': sum(5 * (t + 1) for t in steps),
-                'ppo_loss': 15 * len(steps),
-                'ppo_loss_backward': 5 * len(steps),
-                'normalize_advantages': 2 * len(steps)}
+    # epochs of 1 minibatch for each of the `nets` updated (the student of
+    # DR; the two students and the teacher of PAIRED).  B3 launches one
+    # kernel a pass, whatever the sequence's length; B7 two kernels forward
+    # and one backward; the normalisation two once an update.
+    def update_launches(nets):
+        return {'lstm_seq': 5 * 2 * nets,
+                'lstm_seq_backward': 5 * nets,
+                'ppo_loss': 15 * nets,
+                'ppo_loss_backward': 5 * nets,
+                'normalize_advantages': 2 * nets}
 
     t0 = time.perf_counter()
     reset_counts()
@@ -3461,7 +3493,7 @@ def main() -> int:
         'multigrid_adversary_step': 52, 'teacher_proj': 52 + 1 + 5,
         'multigrid_step': 2 * MAIN_T, 'multigrid_obs': 2, 'gae': 3,
         'policy_step': 2 * (MAIN_T + 1), 'teacher_proj_backward': 2 * 5,
-        **update_launches((MAIN_T, MAIN_T, 52))})
+        **update_launches(3)})
     log('paired_cycle_bench_size', t0, launches=bench_launches,
         **bench_cycle)
     t0 = time.perf_counter()
@@ -3553,7 +3585,7 @@ def main() -> int:
     plr_need = {'plr_score_fold': 2, 'plr_sample_weights': 4,
                 'plr_promote': 2, 'multigrid_shortest_path': 1,
                 'multigrid_step': 2 * MAIN_T, 'gae': 2, **b2(2),
-                **update_launches((MAIN_T, MAIN_T))}
+                **update_launches(2)}
     # The teacher without a core: its construction (27 moves of B5, 28
     # B4 forwards at N = 64 with the bootstrap value), and its flat update
     # (5 epochs of one minibatch: a B4 forward, its backward's two kernels
@@ -3574,30 +3606,30 @@ def main() -> int:
         'dr': run_slice('slice', SLICE_ARGS, 2, {
             'multigrid_step': MAIN_T, 'multigrid_obs': 1, 'gae': 1,
             'multigrid_shortest_path': 1, 'multigrid_reset_random': 1,
-            **b2(1), **update_launches((MAIN_T,))}),
+            **b2(1), **update_launches(1)}),
         'robust_plr': run_plr_slice('robust_plr_slice', ROBUST_PLR_ARGS, {
             **plr_need, **design(27)}),
         'accel': run_plr_slice('accel_slice', ACCEL_ARGS, {
             **plr_need, **design(2), 'plr_score_fold': 3, 'plr_promote': 4,
             'multigrid_mutate': 1, 'multigrid_step': 3 * MAIN_T, 'gae': 3,
-            **b2(3), **update_launches((MAIN_T, MAIN_T, MAIN_T))}),
+            **b2(3), **update_launches(3)}),
         'paired': run_slice('paired_slice', PAIRED_ARGS, 2, {
             'multigrid_adversary_step': 27, 'teacher_proj': 27 + 1 + 5,
             'multigrid_step': 2 * MAIN_T, 'multigrid_obs': 2, 'gae': 3,
             **b2(2), 'teacher_proj_backward': 2 * 5,
-            **update_launches((MAIN_T, MAIN_T, 27))}),
+            **update_launches(3)}),
         # REPAIRED's generate and replay cycles (the coin's third not
         # counted): four student rollouts and updates, one construction,
         # two teacher updates (the replay's on the stored rollout), both
         # buffers' promotions on the generate cycle
         'repaired': run_plr_slice('repaired_slice', REPAIRED_ARGS, plus(
             b2(4), construction, flat_teacher_update, flat_teacher_update,
-            update_launches((MAIN_T,) * 4),
+            update_launches(4),
             {'multigrid_step': 4 * MAIN_T, 'gae': 6, 'plr_score_fold': 4,
              'plr_sample_weights': 4, 'plr_promote': 4})),
         'minimax': run_slice('minimax_slice', MINIMAX_ARGS, 2, plus(
             b2(1), construction, flat_teacher_update,
-            update_launches((MAIN_T,)),
+            update_launches(1),
             {'multigrid_step': MAIN_T, 'gae': 2, 'multigrid_obs': 1})),
     }
     def run_cycle(runner, phase, phases, need, **kw):
@@ -3730,7 +3762,7 @@ def main() -> int:
     run_slice('bench_env_slice', BENCH_ENV_ARGS, 1, {
         'multigrid_adversary_step': 52, 'teacher_proj': 52 + 1 + 5,
         'multigrid_step': 2 * MAIN_T, 'gae': 3,
-        **update_launches((MAIN_T, MAIN_T, 52))})
+        **update_launches(3)})
     by_path['paired_bench_size'] = bench_launches
 
     # -- 5. kernels line and result ----------------------------------------

@@ -46,8 +46,9 @@ SIGNATURES = {
     'dcd_teacher_proj_backward': [_P] * 11 + [_I] * 7 + [_P],
     'dcd_teacher_proj_backward_workspace': [_I] * 5,
     'dcd_policy_step': [_P] * 32 + [_I] * 5 + [_P],
+    'dcd_lstm_seq_plan': [_I, _I, _I, _P],
     'dcd_lstm_seq_forward': [_P] * 8 + [_I] * 3 + [_P],
-    'dcd_lstm_seq_backward': [_P] * 13 + [_I] * 3 + [_P],
+    'dcd_lstm_seq_backward': [_P] * 12 + [_I] * 3 + [_P],
     'dcd_ppo_loss_workspace': [_I],
     'dcd_ppo_loss_forward': [_P] * 9 + [_I, _I, _F, _F, _F, _I, _F, _F, _P],
     'dcd_ppo_loss_backward': [_P] * 10 + [_I, _I, _F, _F, _F, _I, _F, _F,

@@ -12,15 +12,24 @@ per-step carries (c, h) (T, N, H) ×2, ``W_h``, ``b`` and the masks, and
 ``zx`` by reference (the caller's input, which the recompute reads); its
 backward recomputes z step by step in reverse, so no per-step autograd
 graph exists.  It returns dzx (= dz), dW_h, db and d(c0, h0).  dW_h and db
-are one ``torch.matmul`` and one sum over the stored tensors after the
-reverse loop; the recurrent products and the cell stay in the kernels.
+are float64 products and a float64 sum over the stored tensors after the
+reverse loop (:func:`weight_grads`); the
+recurrent products and the cell stay in the kernels.
 
-The CUDA source is ``csrc/lstm_seq.cu``: one launch a step in each
-direction, made by the C entry points.  It is bound by operations: at
-N = 8192, T = 256, H = 256 the forward's 1.10e12 fp32 operations take at
-least 16.4 ms on an H100, the backward twice that.  CPU tensors take the
-plain twins (:func:`lstm_seq_plain_forward`, :func:`lstm_seq_plain_backward`);
-CUDA tensors launch the kernels or raise.
+The CUDA source is ``csrc/lstm_seq.cu``: one persistent launch a pass.  A
+cluster of H / 16 CTAs owns a block of BM rows for all T steps; each CTA
+keeps its 64 gate columns of ``W_h``, split once into TF32 hi and lo
+planes, in shared memory, the products run as three TF32 products on the
+tensor cores (fp32 accuracy), and h (forward) or the partial sums of
+dz @ W_h (backward) move between the cluster's CTAs through distributed
+shared memory, counted by mbarriers.  The backward's launch also gives
+d(h0).  At N = 8192, T = 256, H = 256 the forward's 1.10e12 operations take
+at least 16.4 ms on an H100's CUDA cores in fp32 and about 6.7 ms as
+3xTF32 on its tensor cores, the backward's twice that; at N = 32 the 256
+dependent steps set the pace.  :func:`plan` reports the launch's BM,
+cluster size and how many such clusters the card holds at once.  CPU
+tensors take the plain twins (:func:`lstm_seq_plain_forward`,
+:func:`lstm_seq_plain_backward`); CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -30,8 +39,10 @@ import torch.nn.functional as F
 
 from . import _build
 
-# The kernel's CTA tile covers 32 hidden units (kBU in csrc/lstm_seq.cu).
+# The kernels take H a multiple of 32 up to 256: a cluster of H / 16 CTAs
+# of 16 hidden units each, at most 16 (kMaxH in csrc/lstm_seq.cu).
 UNIT_TILE = 32
+MAX_HIDDEN = 256
 
 
 def _step(zx_t, m, w_h, b, c, h):
@@ -57,14 +68,36 @@ def lstm_seq_plain_forward(zx, masks, w_h, b, c0, h0):
     return torch.stack(hs), torch.stack(cs), (c, h)
 
 
+# Rows of one float64 product in weight_grads: 256 MB of dz at 4H = 1024.
+WEIGHT_GRAD_ROWS = 32768
+
+
 def weight_grads(dzx, masks, h0, h_all):
-    """dW_h = Σ_t dz_t^T (m_t·h_{t-1}) and db = Σ_t dz_t: one matmul over
-    the stored (T·N, 4H) and (T·N, H) tensors."""
-    hp = torch.cat([h0[None], h_all[:-1]])
-    hp.mul_(masks[..., None])
-    four_h = dzx.shape[-1]
-    dw = torch.matmul(dzx.reshape(-1, four_h).T, hp.reshape(-1, hp.shape[-1]))
-    return dw, dzx.sum((0, 1))
+    """dW_h = Σ_t dz_t^T (m_t·h_{t-1}) and db = Σ_t dz_t, both accumulated
+    in float64 and rounded once.
+
+    One float64 product and sum over as many whole steps as fit in
+    ``WEIGHT_GRAD_ROWS`` rows at a time (all T at N = 32, 4 at N = 8192),
+    so that the float64 copies stay small.  One fp32 product over all T·N
+    rows is off the exact sum by ~1.6e-3 at T = 256, N = 8192, ten times
+    the 1e-4 + 1e-4·|dW| that the kernels are held to, so that two fp32
+    products of nearly equal dz disagree by more than the dz do; in float64
+    the product adds nothing to the dz's own error.
+    """
+    T, N, four_h = dzx.shape
+    chunk = max(1, WEIGHT_GRAD_ROWS // max(N, 1))
+    dw = torch.zeros((four_h, h0.shape[-1]), dtype=torch.float64,
+                     device=dzx.device)
+    db = torch.zeros(four_h, dtype=torch.float64, device=dzx.device)
+    for t0 in range(0, T, chunk):
+        t1 = min(T, t0 + chunk)
+        hp = (h_all[t0 - 1:t1 - 1] if t0
+              else torch.cat([h0[None], h_all[:t1 - 1]]))
+        hp = (hp * masks[t0:t1, :, None]).double().flatten(0, 1)
+        dz = dzx[t0:t1].flatten(0, 1).double()
+        dw.addmm_(dz.T, hp)
+        db += dz.sum(0)
+    return dw.float(), db.float()
 
 
 def lstm_seq_plain_backward(dh_all, dc_last, zx, masks, w_h, b, c0, h0,
@@ -105,9 +138,23 @@ def _check(zx, masks, w_h, b, c0, h0):
         _build.check_tensor(name, t, torch.float32, shape, dev)
     if T == 0:
         raise ValueError('zx: the sequence is empty')
-    if dev.type != 'cpu' and H % UNIT_TILE:
+    if dev.type != 'cpu' and (H % UNIT_TILE or H > MAX_HIDDEN):
         raise ValueError(f'hidden size {H}: the kernel takes a multiple of '
-                         f'{UNIT_TILE}')
+                         f'{UNIT_TILE} up to {MAX_HIDDEN}')
+
+
+def plan(N, H, backward=False):
+    """The kernel's launch plan at (N, H) on the current card: ``bm`` rows
+    a cluster, ``cluster`` CTAs a cluster, ``max_active_clusters`` (what
+    ``cudaOccupancyMaxActiveClusters`` reports for that kernel) and its
+    ``smem_bytes`` a CTA."""
+    import ctypes
+    out = (ctypes.c_int * 4)()
+    rc = _build.library().dcd_lstm_seq_plan(N, H, int(backward),
+                                             ctypes.addressof(out))
+    _build.check(rc, 'lstm_seq plan')
+    return dict(zip(('bm', 'cluster', 'max_active_clusters', 'smem_bytes'),
+                    out))
 
 
 def _launch_forward(zx, masks, w_h, b, c0, h0):
@@ -115,34 +162,39 @@ def _launch_forward(zx, masks, w_h, b, c0, h0):
     H = h0.shape[-1]
     c_all = torch.empty((T, N, H), dtype=torch.float32, device=zx.device)
     h_all = torch.empty_like(c_all)
-    w_hT = w_h.T.contiguous()
     rc = _build.library().dcd_lstm_seq_forward(
-        zx.data_ptr(), masks.data_ptr(), w_hT.data_ptr(),
+        zx.data_ptr(), masks.data_ptr(), w_h.data_ptr(),
         b.data_ptr(), c0.data_ptr(), h0.data_ptr(), c_all.data_ptr(),
         h_all.data_ptr(), T, N, H,
         torch.cuda.current_stream(zx.device).cuda_stream)
     _build.check(rc, 'lstm_seq forward')
-    lstm_seq.launches += T
+    lstm_seq.launches += 1
     return h_all, c_all
 
 
-def _launch_backward(dh_all, dc_last, zx, masks, w_h, b, c0, h0, h_all,
+def _backward_kernel(dh_all, dc_last, zx, masks, w_h, b, c0, h0, h_all,
                      c_all):
+    """The backward's launch alone → (dzx, d(c0), d(h0))."""
     T, N, _ = zx.shape
     H = h0.shape[-1]
     dzx = torch.empty_like(zx)
     dh0 = torch.empty_like(h0)
     dc = dc_last.clone()          # d(c_T) in, d(c0) out
-    w_hT = w_h.T.contiguous()
     rc = _build.library().dcd_lstm_seq_backward(
-        zx.data_ptr(), masks.data_ptr(), w_h.data_ptr(), w_hT.data_ptr(),
-        b.data_ptr(), c0.data_ptr(), h0.data_ptr(), c_all.data_ptr(),
-        h_all.data_ptr(), dh_all.data_ptr(), dc.data_ptr(), dzx.data_ptr(),
-        dh0.data_ptr(), T, N, H,
-        torch.cuda.current_stream(zx.device).cuda_stream)
+        zx.data_ptr(), masks.data_ptr(), w_h.data_ptr(), b.data_ptr(),
+        c0.data_ptr(), h0.data_ptr(), c_all.data_ptr(), h_all.data_ptr(),
+        dh_all.data_ptr(), dc.data_ptr(), dzx.data_ptr(), dh0.data_ptr(),
+        T, N, H, torch.cuda.current_stream(zx.device).cuda_stream)
     _build.check(rc, 'lstm_seq backward')
-    lstm_seq.launches += T + 1
-    lstm_seq.backward_launches += T + 1
+    lstm_seq.launches += 1
+    lstm_seq.backward_launches += 1
+    return dzx, dc, dh0
+
+
+def _launch_backward(dh_all, dc_last, zx, masks, w_h, b, c0, h0, h_all,
+                     c_all):
+    dzx, dc, dh0 = _backward_kernel(dh_all, dc_last, zx, masks, w_h, b, c0,
+                                    h0, h_all, c_all)
     dw, db = weight_grads(dzx, masks, h0, h_all)
     return dzx, dw, db, dc, dh0
 
@@ -181,7 +233,7 @@ def lstm_seq(zx, masks, w_h, b, c0, h0):
     ``w_h`` (4H, H) and ``b`` (4H,) are the hidden-side Linear's weight and
     bias.  CPU tensors run the plain twins inside :class:`LSTMSeq`; CUDA
     tensors launch the kernels or raise.  ``lstm_seq.launches`` counts every
-    step kernel launched, T a forward pass and T + 1 a backward pass;
+    kernel launched, one a forward pass and one a backward pass;
     ``lstm_seq.backward_launches`` counts the backward's alone.
     """
     _check(zx, masks, w_h, b, c0, h0)

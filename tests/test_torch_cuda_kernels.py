@@ -148,43 +148,74 @@ def test_teacher_proj_and_gradients(device, batch, n_out):
         torch.testing.assert_close(a.to(b.dtype), b, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize('shape', [(256, 32), (52, 1024)])
+@pytest.mark.parametrize('shape', [(256, 32), (52, 1024), (256, 1000),
+                                   (1, 1), (16, 40, 32), (16, 200, 96)])
 def test_lstm_seq_matches_plain(device, shape):
-    """Kernel B3 at LSTM-256 with random mask resets: outputs within 1e-5,
-    gradients within atol + rtol * |ref| = 1e-4 + 1e-4 * |ref| (each z
-    sums 256 products, dW_h T * N * 256, in another order than cuBLAS)."""
+    """Kernel B3 at LSTM-256 with random mask resets, at the students' and
+    the teacher's shapes, a ragged N and one row of one step, and at two
+    narrower widths whose K does not split into whole 16-blocks per warp:
+    outputs within 1e-5, gradients within atol + rtol * |ref| = 1e-4 +
+    1e-4 * |ref| (each z sums H products in another order than cuBLAS;
+    dW_h in float64 on both sides), one launch a pass, and two runs
+    bit-identical."""
     from dcd_isaac_tpu_torch.kernels.lstm_seq import (
         lstm_seq, lstm_seq_plain_backward, lstm_seq_plain_forward,
     )
     from dcd_isaac_tpu_torch.models.common import RNNCore
-    T, N = shape
+    T, N, H = (*shape, 256)[:3]
     g = torch.Generator(device=device).manual_seed(T + N)
     rn = lambda *s: torch.randn(s, generator=g, device=device)
     masks = (torch.rand((T, N), generator=g, device=device) > 0.05).float()
     masks[0, ::2] = 0.0
-    core = RNNCore(4, 256, generator=torch.Generator().manual_seed(T))
-    x = dict(zx=rn(T, N, 1024), masks=masks,
-             w_h=core.w_h.weight.detach().to(device), b=rn(1024) * 0.1,
-             c0=rn(N, 256), h0=rn(N, 256))
-    g_h, g_c = rn(T, N, 256), rn(N, 256)
-    leaves = {k: v.clone().requires_grad_(k != 'masks') for k, v in x.items()}
-    before = (lstm_seq.launches, lstm_seq.backward_launches)
-    h_all, (c_T, _) = lstm_seq(*leaves.values())
+    core = RNNCore(4, H, generator=torch.Generator().manual_seed(T))
+    x = dict(zx=rn(T, N, 4 * H), masks=masks,
+             w_h=core.w_h.weight.detach().to(device), b=rn(4 * H) * 0.1,
+             c0=rn(N, H), h0=rn(N, H))
+    g_h, g_c = rn(T, N, H), rn(N, H)
     names = ('zx', 'w_h', 'b', 'c0', 'h0')
-    grads = torch.autograd.grad((h_all, c_T), [leaves[k] for k in names],
-                                (g_h, g_c))
-    torch.cuda.synchronize()
-    # T step kernels forward, T + 1 backward (the last gives d(h0))
-    assert (lstm_seq.launches, lstm_seq.backward_launches) == (
-        before[0] + 2 * T + 1, before[1] + T + 1)
+    runs = []
+    for _ in range(2):
+        leaves = {k: v.clone().requires_grad_(k != 'masks')
+                  for k, v in x.items()}
+        before = (lstm_seq.launches, lstm_seq.backward_launches)
+        h_all, (c_T, _) = lstm_seq(*leaves.values())
+        grads = torch.autograd.grad((h_all, c_T),
+                                    [leaves[k] for k in names], (g_h, g_c))
+        torch.cuda.synchronize()
+        # one launch forward, one backward (which also gives d(h0))
+        assert (lstm_seq.launches, lstm_seq.backward_launches) == (
+            before[0] + 2, before[1] + 1)
+        runs.append((h_all.detach(), c_T.detach(), grads))
+    for a, b in zip(runs[0][:2] + runs[0][2], runs[1][:2] + runs[1][2]):
+        assert torch.equal(a, b)
+    h_all, c_T, grads = runs[0]
     with torch.no_grad():
         want_h, want_c, (want_cT, _) = lstm_seq_plain_forward(**x)
         want_grads = lstm_seq_plain_backward(g_h, g_c, *x.values(), want_h,
                                              want_c)
-    torch.testing.assert_close(h_all.detach(), want_h, atol=1e-5, rtol=0)
-    torch.testing.assert_close(c_T.detach(), want_cT, atol=1e-5, rtol=0)
+    torch.testing.assert_close(h_all, want_h, atol=1e-5, rtol=0)
+    torch.testing.assert_close(c_T, want_cT, atol=1e-5, rtol=0)
     for a, b in zip(grads, want_grads):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_lstm_seq_wide_after_narrow(device):
+    """B3 at H = 32, then at H = 256 in the same process: a plan made for a
+    narrower H must not lower the shared memory a wider launch may take
+    (the smoke's CPU sequences run H = 32 before its H = 256 cycles)."""
+    from dcd_isaac_tpu_torch.kernels.lstm_seq import (
+        lstm_seq, lstm_seq_plain_forward,
+    )
+    g = torch.Generator(device=device).manual_seed(7)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)
+    for T, N, H in ((4, 40, 32), (4, 1000, 256), (4, 40, 32), (4, 40, 256)):
+        masks = torch.ones((T, N), device=device)
+        x = dict(zx=rn(T, N, 4 * H), masks=masks, w_h=rn(4 * H, H) * 0.05,
+                 b=rn(4 * H) * 0.1, c0=rn(N, H), h0=rn(N, H))
+        h_all, (c_T, _) = lstm_seq(*x.values())
+        want_h, _, (want_cT, _) = lstm_seq_plain_forward(**x)
+        torch.testing.assert_close(h_all, want_h, atol=1e-5, rtol=0)
+        torch.testing.assert_close(c_T, want_cT, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize('clip_value_loss', [True, False])
